@@ -1,0 +1,115 @@
+"""Closed-form torus quartic roots (txr/geometry/torus.py:182-303).
+
+Ferrari: the largest root of the resolvent cubic by Newton from the Lagrange
+upper bound, then two quadratics.  A complex pair reports its real part and
+its squared imaginary part, which the caller's |imag| ≤ 1e-3 acceptance
+(rt.frag:478-486) reads.  Elementwise over tensors of any shape; the CUDA
+probe kernel carries the same arithmetic (kernels/csrc/txr_common.cuh).
+"""
+
+from __future__ import annotations
+
+import torch
+
+RESOLVENT_NEWTON_ITERS = 20
+
+
+def _resolvent_root(p, qq, r):
+    """Largest real root m ≥ 0 of m³ + p·m² + ((p²−4r)/4)·m − q²/8."""
+    A2 = p
+    A1 = 0.25 * (p * p - 4.0 * r)
+    A0 = -0.125 * qq * qq
+    cbrt = torch.pow(torch.clamp(A0.abs(), min=1e-30), 1.0 / 3.0)
+    m = 2.0 * torch.maximum(A2.abs(), torch.maximum(torch.sqrt(A1.abs()), cbrt)) + 1e-6
+    for _ in range(RESOLVENT_NEWTON_ITERS):
+        f = ((m + A2) * m + A1) * m + A0
+        fp = (3.0 * m + 2.0 * A2) * m + A1
+        ok = fp.abs() > 1e-20
+        m = m - torch.where(ok, f / torch.where(ok, fp, 1.0), 0.0)
+    return torch.clamp(m, min=0.0)
+
+
+def ferrari_roots_tuple(c4, c3, c2, c1, c0):
+    """The four roots of c4 t⁴ + … + c0 as ((re, im²) × 4)."""
+    inv4 = 1.0 / torch.where(c4.abs() > 1e-20, c4, 1e-20)
+    a = c3 * inv4
+    b = c2 * inv4
+    c = c1 * inv4
+    d = c0 * inv4
+    # depressed quartic y⁴ + p y² + q y + r, t = y − a/4
+    a2 = a * a
+    p = b - 0.375 * a2
+    qq = c - 0.5 * a * b + 0.125 * a2 * a
+    r = d - 0.25 * a * c + 0.0625 * a2 * b - (3.0 / 256.0) * a2 * a2
+
+    m = _resolvent_root(p, qq, r)
+    s = torch.sqrt(torch.clamp(2.0 * m, min=0.0))
+
+    # general split y² ∓ s·y + (p/2 + m ± q/(2s)), and the biquadratic split
+    # y² = z±, exact when q = 0; keep whichever reproduces the quartic better
+    qs = qq / torch.clamp(2.0 * s, min=1e-12)
+    gB1, gC1 = -s, 0.5 * p + m + qs
+    gB2, gC2 = s, 0.5 * p + m - qs
+    db = torch.sqrt(torch.clamp(0.25 * p * p - r, min=0.0))
+    zero = torch.zeros_like(p)
+    bB1, bC1 = zero, 0.5 * p + db
+    bB2, bC2 = zero, 0.5 * p - db
+
+    def split_err(B1, C1, B2, C2):
+        return ((C1 + C2 + B1 * B2 - p).abs()
+                + (B1 * C2 + B2 * C1 - qq).abs()
+                + (C1 * C2 - r).abs() / (1.0 + p.abs()))
+
+    use_biquad = split_err(bB1, bC1, bB2, bC2) < split_err(gB1, gC1, gB2, gC2)
+    B1 = torch.where(use_biquad, bB1, gB1)
+    C1 = torch.where(use_biquad, bC1, gC1)
+    B2 = torch.where(use_biquad, bB2, gB2)
+    C2 = torch.where(use_biquad, bC2, gC2)
+
+    def quad(B, C):
+        D = B * B - 4.0 * C
+        sqD = torch.sqrt(torch.clamp(D, min=0.0))
+        re1 = 0.5 * (-B - sqD)
+        re2 = 0.5 * (-B + sqD)
+        rec = -0.5 * B
+        im_sq = torch.clamp(-D, min=0.0) * 0.25
+        cplx = D < 0.0
+        return (torch.where(cplx, rec, re1), torch.where(cplx, im_sq, 0.0),
+                torch.where(cplx, rec, re2), torch.where(cplx, im_sq, 0.0))
+
+    r1, i1, r2, i2 = quad(B1, C1)
+    r3, i3, r4, i4 = quad(B2, C2)
+    off = 0.25 * a
+    return ((r1 - off, i1), (r2 - off, i2), (r3 - off, i3), (r4 - off, i4))
+
+
+def newton_refine_factored(ts, o, d, R2, r2, steps):
+    """Newton steps on the same quartic in its factored form
+    f(t) = (|p|² + R² − r²)² − 4R²(px² + py²), p = o + t·d, skipped where
+    |f'| ≤ 1e-6.  Near the tube p is O(R) while the expanded coefficients
+    grow with |o|⁴, so this form keeps f accurate in f32 where the
+    expanded one loses the root to cancellation (≈1e-3 relative at a
+    distance of 13, as large as the shadow-ray bias)."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    for _ in range(steps):
+        px, py, pz = ox + dx * ts, oy + dy * ts, oz + dz * ts
+        s = px * px + py * py + pz * pz + R2 - r2
+        rho = px * dx + py * dy
+        f = s * s - 4.0 * R2 * (px * px + py * py)
+        fp = 4.0 * s * (rho + pz * dz) - 8.0 * R2 * rho
+        ok = fp.abs() > 1e-6
+        ts = ts - torch.where(ok, f / torch.where(ok, fp, 1.0), 0.0)
+    return ts
+
+
+def _newton_refine(ts, coeffs, steps):
+    """Newton steps on the quartic, skipped where |f'| ≤ 1e-6 (a tangent
+    root, where a step would jump far)."""
+    c4, c3, c2, c1, c0 = coeffs
+    for _ in range(steps):
+        f = (((c4 * ts + c3) * ts + c2) * ts + c1) * ts + c0
+        fp = ((4.0 * c4 * ts + 3.0 * c3) * ts + 2.0 * c2) * ts + c1
+        ok = fp.abs() > 1e-6
+        ts = ts - torch.where(ok, f / torch.where(ok, fp, 1.0), 0.0)
+    return ts

@@ -1,0 +1,230 @@
+"""One bounce step on the probe kernel (txr/render/fused.py:31-456).
+
+The probe does every sweep, the hit info, Fresnel and the per-light shading
+probes; this module applies the one texture fetch and the per-ray state
+update, mask for mask in the order of the JAX package's ``fused_step_fwd``
+(rt.frag:804-902).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from txr_torch.kernels.step_probe import KIND_BOX, KIND_RGBA, step_probe, unpack
+from txr_torch.render import texture as tx
+from txr_torch.render.intersect import _type_tables
+from txr_torch.render.shading import reflect, refract
+from txr_torch.scene.types import TYPE_POINT_LIGHT, TYPE_SPHERE
+
+
+def _probe(scene, textures, cfg, ro, rd, shade_flipped):
+    from txr_torch.render.trace import _pix_angle
+
+    f, i = step_probe(
+        scene, textures.atlas, ro, rd,
+        one_side=cfg.plane_oneside, shadow_enabled=cfg.shadow_enabled,
+        do_fresnel=cfg.do_fresnel, tir=cfg.total_internal_reflection,
+        pix_angle=_pix_angle(cfg) or 0.0, shade_flipped=shade_flipped,
+        device=ro.device)
+    return unpack(f, i, scene.counts)
+
+
+def _fetch_texels(textures, cfg, pr, ty, alive=None):
+    """The one atlas fetch serving every textured hit type, fed by the
+    probe's requests.  Sphere lanes carry the rotated normal; the spherical
+    UV is finished here.  Only lanes that request texels and count
+    (``alive``) are fetched; None when there are none."""
+    atlas = textures.atlas
+    if atlas is None:
+        return None
+    kind = pr["kind"]
+    need = (kind == KIND_RGBA) | (kind == KIND_BOX)
+    if alive is not None:
+        need = need & alive
+    lanes = torch.nonzero(need).squeeze(-1)
+    if not lanes.numel():
+        return None
+    # fetch for the requesting lanes only; the others read 1 and never use it
+    req = pr["req"][lanes]
+    sphere_tex = (kind[lanes] == KIND_RGBA) & (ty[lanes] == TYPE_SPHERE)
+    uv = torch.where(sphere_tex[..., None], tx.sphere_uv(req), req[..., :2])
+    k = torch.clamp(pr["req_k"][lanes], 0, len(atlas.dims) - 1)
+    lod = pr["lod"][lanes] if cfg.texture_lod else None
+    texc = torch.ones(need.shape + (4,), dtype=req.dtype, device=req.device)
+    return texc.index_copy_(0, lanes, tx.sample_atlas(atlas, k, uv, lod))
+
+
+def _apply_texture(pr, texc):
+    """Textured colour/alpha overrides (get_hit_info's per-type branches)."""
+    mcol = pr["color"]
+    alpha = torch.ones_like(pr["t"])
+    if texc is not None:
+        rgba = pr["kind"] == KIND_RGBA
+        mcol = torch.where(rgba[..., None], texc[..., :3], mcol)
+        alpha = torch.where(rgba, texc[..., 3], alpha)
+        boxk = pr["kind"] == KIND_BOX
+        mcol = torch.where(boxk[..., None], texc[..., :3] * pr["tex_w"][..., None], mcol)
+    return mcol, alpha
+
+
+def shadow_from_probes(scene, textures, solid, ring_hit, ring_uv):
+    """Per-light shadow factor [R, L] from the any-hit probes (inShadow,
+    rt.frag:630-658): solid occlusion; an opaque ring hit shadows fully; a
+    textured ring attenuates by its texture alpha at the hit UV."""
+    sh = solid
+    if scene.counts["rings"] and ring_hit is not None:
+        textured = scene.rings.texture > 0
+        have_tex = textures.ring_alpha is not None
+        opaque = ~textured if have_tex else torch.ones_like(textured)
+        sh = torch.maximum(sh, (ring_hit & opaque).any(-1).to(sh.dtype))
+        if have_tex:
+            needa = (ring_hit & textured).reshape(-1)
+            lanes = torch.nonzero(needa).squeeze(-1)
+            if lanes.numel():
+                a = torch.zeros(needa.shape, dtype=sh.dtype, device=sh.device)
+                a.index_copy_(0, lanes, tx.sample_ring_alpha(textures,
+                                                             ring_uv.reshape(-1, 2)[lanes]))
+                sh = sh + a.reshape(ring_hit.shape).sum(-1)
+    return torch.clamp(sh, max=1.0)
+
+
+def _shade_from_probes(scene, textures, cfg, pr, mcol):
+    """calcShade from the probes: ambient + Σ_lights (1 − shadow)·Phong
+    (rt.frag:660-709)."""
+    c = scene.counts
+    ambient = scene.ambient_color * mcol
+    if c["lights_point"] + c["lights_direct"] == 0:
+        return ambient
+    if cfg.shadow_enabled:
+        sh = shadow_from_probes(scene, textures, pr["light_solid"], pr["ring_hit"],
+                                pr["ring_uv"])
+        factor = torch.maximum((1.0 - sh)[..., None], scene.shadow_ambient)
+    else:
+        factor = torch.ones(pr["light_solid"].shape + (3,), device=mcol.device)
+    lcolor = torch.cat([scene.lights_point.color, scene.lights_direct.color])   # [L, 3]
+    com = pr["light_s"][..., None] * factor                                      # [R, L, 3]
+    diffuse = (com * lcolor).sum(-2)
+    spec = (com * lcolor * pr["light_spec"][..., None]).sum(-2)
+    return (ambient + diffuse * mcol * pr["diffuse"][..., None] * pr["kd"][..., None]
+            + spec * pr["ks"][..., None])
+
+
+def _types_of(scene, pr):
+    type_tab, idx_tab = _type_tables(scene)
+    hit = torch.isfinite(pr["t"])
+    if not type_tab.numel():
+        none = torch.full_like(pr["slot"], -1)
+        return hit, none, none
+    ty = torch.where(hit, type_tab[pr["slot"]], -1)
+    return hit, ty, idx_tab[pr["slot"]]
+
+
+def _light_color(scene, idx):
+    n = scene.counts["lights_point"]
+    return scene.lights_point.color[torch.clamp(idx, 0, n - 1)]
+
+
+def fused_reflected_color(scene, textures, cfg, ro, rd):
+    """getReflectedColor (rt.frag:787-802): one extra probe pass whose
+    shading probes use the unflipped hit normal."""
+    pr = _probe(scene, textures, cfg, ro, rd, shade_flipped=False)
+    hit0, ty, idx = _types_of(scene, pr)
+    is_light = ty == TYPE_POINT_LIGHT
+    hit = hit0 & ~is_light
+    mcol, _ = _apply_texture(pr, _fetch_texels(textures, cfg, pr, ty))
+    shade = _shade_from_probes(scene, textures, cfg, pr, mcol)
+    color = torch.where(hit[..., None], shade, 0.0)
+    if scene.counts["lights_point"]:
+        color = torch.where(is_light[..., None], _light_color(scene, idx), color)
+    return color
+
+
+def fused_step_fwd(scene, textures, cfg, st):
+    """One bounce step: st (dict of per-ray state) → the next state."""
+    ro, rd = st["ro"], st["rd"]
+    alive = st["alive"]
+    color, mask = st["color"], st["mask"]
+    absorb_dist = st["absorb_dist"]
+    bounces = st["bounces"]
+
+    pr = _probe(scene, textures, cfg, ro, rd, shade_flipped=True)
+    t = pr["t"]
+    hit, ty, idx = _types_of(scene, pr)
+    act = alive & hit
+    # a miss records one bit; the environment is fetched after the loop
+    missed = st["missed"] | (alive & ~hit)
+    alive = alive & hit
+
+    if scene.counts["lights_point"]:
+        is_light = act & (ty == TYPE_POINT_LIGHT)
+        color = torch.where(is_light[..., None], color + _light_color(scene, idx) * mask, color)
+        alive = alive & ~is_light
+        act = act & ~is_light
+
+    mcol, alpha = _apply_texture(pr, _fetch_texels(textures, cfg, pr, ty, alive=st["alive"]))
+
+    n = pr["n"]                      # already flipped to face the ray
+    outside = pr["outside"]
+    t_safe = torch.where(hit, t, 0.0)
+    pt = ro + rd * t_safe[..., None]
+    bias = ((9e-3 * t_safe + 35.0) / 35e3)[..., None]
+
+    refr_idx = pr["refract"]
+    refl = pr["reflect"]
+    is_refractive = refr_idx > 0.0
+    reflect_mult = pr["rm"]
+    refract_mult = 1.0 - reflect_mult
+
+    shade_origin_out = pt + n * bias
+    shade_origin_in = pt - n * bias
+
+    refr_act = act & is_refractive
+    glossy = refr_act & outside & (refl > 0.0)
+    if cfg.refractive_glossy and glossy.any():
+        # glossy lanes are rare: probe only those (same values per lane)
+        lanes = torch.nonzero(glossy).squeeze(-1)
+        rc = fused_reflected_color(scene, textures, cfg,
+                                   shade_origin_out[lanes].contiguous(),
+                                   reflect(rd, n)[lanes].contiguous())
+        g = glossy[..., None]
+        rc_full = torch.zeros_like(color).index_copy_(0, lanes, rc)
+        color = torch.where(g, color + rc_full * reflect_mult[..., None] * mask, color)
+        mask = torch.where(g, mask * refract_mult[..., None], mask)
+
+    inside = refr_act & ~outside
+    absorb_dist = torch.where(inside, absorb_dist + t, absorb_dist)
+    beer = torch.exp(-pr["absorb"] * absorb_dist[..., None])
+    mask = torch.where(inside[..., None], mask * beer, mask)
+
+    if cfg.total_internal_reflection:
+        tir = refr_act & (reflect_mult >= 1.0)
+        alive = alive & ~tir
+        refr_act = refr_act & ~tir
+
+    eta = torch.where(outside, 1.0 / torch.clamp(refr_idx, min=1e-6), refr_idx)
+    ro = torch.where(refr_act[..., None], shade_origin_in, ro)
+    rd = torch.where(refr_act[..., None], refract(rd, n, eta), rd)
+
+    refl_act = act & ~is_refractive & (refl > 0.0)
+    diff_act = act & ~is_refractive & (refl <= 0.0)
+    shade = _shade_from_probes(scene, textures, cfg, pr, mcol)
+    shade = torch.where((refl_act | diff_act)[..., None], shade, 0.0)
+
+    color = torch.where(refl_act[..., None],
+                        color + shade * refract_mult[..., None] * mask, color)
+    ro = torch.where(refl_act[..., None], shade_origin_out, ro)
+    rd = torch.where(refl_act[..., None], reflect(rd, n), rd)
+    mask = torch.where(refl_act[..., None], mask * reflect_mult[..., None], mask)
+
+    color = torch.where(diff_act[..., None], color + shade * mask * alpha[..., None], color)
+    translucent = diff_act & (alpha < 1.0)
+    ro = torch.where(translucent[..., None], shade_origin_in, ro)
+    mask = torch.where(translucent[..., None], mask * (1.0 - alpha[..., None]), mask)
+    alive = alive & ~(diff_act & (alpha >= 1.0))
+
+    consumed = act & ~refr_act if cfg.reflect_reduce_iteration else act
+    bounces = torch.where(consumed, bounces + 1, bounces)
+    alive = alive & (bounces < cfg.iterations)
+
+    return dict(ro=ro.contiguous(), rd=rd.contiguous(), color=color, mask=mask,
+                absorb_dist=absorb_dist, bounces=bounces, alive=alive, missed=missed)
