@@ -1,22 +1,41 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the txr_torch port: builds its kernel, holds the
-kernel against its plain twin, drives the demo scene's forward render and
-times it.  Needs one CUDA card; run from the repository root:
+"""On-card smoke test of the txr_torch port: builds its three kernels, holds
+each against its plain twin, drives the demo scene's forward render, its
+gradient and a few inverse-rendering steps, and times them.  Needs one CUDA
+card; run from the repository root:
 
     python3 chip_smoke.py
 
 Phases, one line each:
-  1. build    compile the step-probe kernel from the sources in the checkout
-  2. probe    kernel vs its plain PyTorch twin on the card: the demo's 1080p
-              primary rays plus 8192 random rays, both probe variants
-  3. gate     96×54 demo render through the kernel vs the f64 oracle image
-              (txr/ref/gate_oracle.npz), golden criterion
-  4. forward  the 1920×1080 demo frame: finite, probe launches counted from
-              zero around one frame, frame time by CUDA events, one
-              full-width probe launch timed against its twin
-Then a JSON line of per-kernel numbers, the card's name and power limit,
-and the last line {"ok": true, "device": {...}}.  Any failure exits
-non-zero and prints no result line.
+  1. build     compile the step-probe, nearest-hit and shadow-sweep kernels
+               from the sources in the checkout, one nvcc each, all at once
+  2. probe     probe kernel vs its plain PyTorch twin on the card: the demo's
+               1080p primary rays plus 8192 random rays, both probe variants
+  3. sweeps    nearest-hit kernel vs twin on the same rays; shadow-sweep
+               kernel vs twin on the shadow rays of the 1080p primary hits
+               toward both lights plus 8192 random rays
+  4. gate      96×54 demo render on the probe route vs the f64 oracle image
+               (txr/ref/gate_oracle.npz), golden criterion
+  5. gate-off  the same render on the eager route (fused="off"), through the
+               nearest-hit and shadow-sweep kernels
+  6. forward   the 1920×1080 demo frame: finite, probe launches counted from
+               zero around one frame, frame time by CUDA events
+  7. grad      demo scene at 48×27, loss mean(img²) over the interior
+               pixels: card vs CPU gradients leaf by leaf on the eager
+               route, and the probe route's gradients vs the eager route's
+               on the card
+  8. fwd+bwd   1920×1080 forward and backward of mean(img²), both routes:
+               finite and nonzero gradients, step time by CUDA events, peak
+               memory, launches per kernel per step; the eager route again
+               with the camera nudged by 1e-6 (how well conditioned the
+               whole-frame gradient is) and without per-step checkpointing
+               (its peak memory)
+  9. optimize  optimize_scene, 5 Adam steps at 1080p on the camera and the
+               spheres from a perturbed demo scene toward the demo frame
+Then each kernel alone, one full-width launch on tables packed once, vs its
+twin and its bound; a JSON line of per-kernel numbers, the card's name and
+power limit, and the last line {"ok": true, "device": {...}}.  Any failure
+exits non-zero and prints no result line.
 """
 
 from __future__ import annotations
@@ -25,6 +44,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -32,16 +52,29 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W, H = 1920, 1080
 GATE_W, GATE_H = 96, 54
+GRAD_W, GRAD_H = 48, 27
 N_RANDOM = 8192
 FRAMES = 5
-PROBE_REPS = 20
+TRAIN_STEPS = 3
+OPT_STEPS = 5
+KERNEL_REPS = 20
 
-# The probe comparison's thresholds (as tpu_smoke.py:101-108): f32 root
+# The kernel comparisons' thresholds (as tpu_smoke.py:101-108): f32 root
 # placement at silhouettes may legitimately flip a lane between kernel and
 # twin, so agreement is a share of lanes, not every lane.
 AGREE = 0.999
 T_REL = 5e-3
 ROW_ABS, ROW_REL = 1e-3, 1e-3
+UV_ABS = 1e-3
+# card vs CPU, and probe route vs eager route, gradients of one leaf:
+# |g - g_ref| <= GRAD_REL |g_ref| + GRAD_ABS (float32 sums in another order).
+# The loss sums img² over interior pixels only, whose 3×3 neighbourhood
+# sees one primitive (as tests/test_grads.py picks its pixels): a pixel
+# whose ray grazes a silhouette carries a gradient spike (dt/dθ ~ 1/√disc),
+# so a nudge of the camera by two float32 ulps moves some leaf's
+# whole-frame gradient by more than half its norm but every interior one
+# by under 1 % (tests/test_torch_grads.py::test_interior_grads_are_stable).
+GRAD_REL, GRAD_ABS = 2e-2, 1e-6
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 without tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -61,15 +94,30 @@ RING_UV_OPS = 8       # shadow-ray ring (u, v)
 LANE_OPS = 300        # hit info, texture request, Fresnel, Phong terms
 
 
-def probe_ops_per_ray(c, one_side=True):
-    sweep = sum(c[k] * (TEST_OPS[k] + ACCEPT_OPS) for k in TEST_OPS)
-    shadow = sum(c[k] * (TEST_OPS[k] + OCCLUDE_OPS)
-                 for k in ("spheres", "surfaces", "boxes", "toruses"))
-    shadow += c["rings"] * (TEST_OPS["rings"] + OCCLUDE_OPS + RING_UV_OPS)
+def sweep_ops_per_ray(c):
+    """The nearest-hit sweep over every slot (calcInter)."""
+    return sum(c[k] * (TEST_OPS[k] + ACCEPT_OPS) for k in TEST_OPS)
+
+
+def shadow_ops_per_ray(c, one_side=True):
+    """One shadow ray's any-hit sweep, with every ring's (hit, u, v)."""
+    ops = sum(c[k] * (TEST_OPS[k] + OCCLUDE_OPS)
+              for k in ("spheres", "surfaces", "boxes", "toruses"))
+    ops += c["rings"] * (TEST_OPS["rings"] + OCCLUDE_OPS + RING_UV_OPS)
     if not one_side:
-        shadow += c["planes"] * (TEST_OPS["planes"] + OCCLUDE_OPS)
+        ops += c["planes"] * (TEST_OPS["planes"] + OCCLUDE_OPS)
+    return ops
+
+
+def probe_ops_per_ray(c, one_side=True):
     L = c["lights_point"] + c["lights_direct"]
-    return sweep + L * shadow + LANE_OPS
+    return sweep_ops_per_ray(c) + L * shadow_ops_per_ray(c, one_side) + LANE_OPS
+
+
+def bound(flops, nbytes):
+    """(least ms on the card, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def log(msg):
@@ -121,6 +169,37 @@ def compare_probe(fk, ik, fr, ir, counts):
     return ok, stats
 
 
+def compare_nearest(tk, sk, tr, sr):
+    """nearest_hit kernel (tk, sk) vs twin (tr, sr) → (ok, stats)."""
+    hk, hr = tk < 1e30, tr < 1e30
+    both = hk & hr
+    agree = both & (sk == sr)
+    rel = (tk[agree] - tr[agree]).abs() / tr[agree].abs().clamp(min=1e-30)
+    stats = dict(hit_agree=float((hk == hr).float().mean()),
+                 slot_agree=float(agree.sum()) / max(int(both.sum()), 1),
+                 t_ok=float((rel < T_REL).float().mean()),
+                 max_abs_err=float((tk[agree] - tr[agree]).abs().max()))
+    ok = stats["hit_agree"] > AGREE and stats["slot_agree"] > AGREE and stats["t_ok"] >= AGREE
+    return ok, stats
+
+
+def compare_shadow(k, r):
+    """shadow_sweep kernel (solid, ring_hit, ring_uv) vs twin → (ok, stats)."""
+    stats = dict(solid_agree=float((k[0] == r[0]).float().mean()))
+    ok = stats["solid_agree"] > AGREE
+    if k[1] is not None:
+        both = k[1] & r[1]
+        err = (k[2] - r[2]).abs().amax(-1)[both]
+        stats.update(ring_hit_agree=float((k[1] == r[1]).float().mean()),
+                     ring_hits=int(both.sum()),
+                     uv_ok=float((err <= UV_ABS).float().mean()) if err.numel() else 1.0,
+                     max_abs_err=float(err.max()) if err.numel() else 0.0)
+        ok = ok and stats["ring_hit_agree"] > AGREE and stats["uv_ok"] >= AGREE
+    else:
+        stats["max_abs_err"] = 0.0
+    return ok, stats
+
+
 def cuda_ms(fn, reps):
     import torch
 
@@ -135,6 +214,30 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def shadow_rays(scene, textures, ro, rd, table, pix):
+    """The shadow rays of the primary hits toward every light, [R·L] —
+    what calc_shade hands the shadow sweep on the first bounce."""
+    import torch
+
+    from txr_torch.geometry.intersect import safe_normalize
+    from txr_torch.render.intersect import MAX_DIST, nearest_hit
+    from txr_torch.render.trace import hit_info
+
+    with torch.no_grad():
+        t, ty, idx = nearest_hit(scene, ro, rd, True, table)
+        hi = hit_info(scene, textures, ro, rd, t, ty, idx, pix)
+        n = hi["normal"]
+        n = torch.where(((rd * n).sum(-1) < 0)[..., None], n, -n)
+        pt = hi["pt"] + n * hi["bias"][..., None]
+        d = scene.lights_point.pos - pt[:, None, :]
+        dirs = torch.cat([d, (-scene.lights_direct.direction).expand(
+            (pt.shape[0], scene.counts["lights_direct"], 3))], 1)
+        dist = torch.cat([torch.sqrt((d * d).sum(-1) + 1e-30), torch.full(
+            (pt.shape[0], scene.counts["lights_direct"]), MAX_DIST, device=pt.device)], 1)
+        so = pt[:, None, :].expand(dirs.shape).reshape(-1, 3).contiguous()
+        return so, safe_normalize(dirs).reshape(-1, 3).contiguous(), dist.reshape(-1).contiguous()
+
+
 def main():
     import torch
 
@@ -143,11 +246,18 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         from txr_torch.apps.demo import build_scene, demo_textures
+        from txr_torch.diff.optimize import optimize_scene
+        from txr_torch.kernels import build
+        from txr_torch.kernels import nearest_hit as nh
+        from txr_torch.kernels import shadow_sweep as ss
         from txr_torch.kernels import step_probe as sp
+        from txr_torch.kernels.scene_table import pack_scene
+        from txr_torch.render.intersect import nearest_hit
         from txr_torch.render.raygen import primary_rays
         from txr_torch.render.render import render
         from txr_torch.render.texture import with_mips
         from txr_torch.render.trace import RenderConfig, auto_refraction_steps
+        from txr_torch.scene.types import float_leaves, unflatten_like
         from txr_torch.utils.image import golden_check
     except ImportError as e:
         fail(f"the txr_torch package is not beside this script ({e})")
@@ -155,100 +265,288 @@ def main():
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    counters = dict(step_probe=sp.step_probe, nearest_hit=nh.launch, shadow_sweep=ss.launch)
+
+    def reset_counts():
+        for c in counters.values():
+            c.launches = 0
+
+    def counts():
+        return {k: c.launches for k, c in counters.items()}
 
     # 1. build -----------------------------------------------------------------
     t0 = time.perf_counter()
-    path, nvcc_log = sp.build()
+    built = build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = " | ".join(ln.strip() for ln in nvcc_log.splitlines()
-                       if "registers" in ln or "spill" in ln)
-    log(f"phase build: {build_s:.1f} s -> {os.path.relpath(path, ROOT)} [{ptxas}]")
+    log(f"phase build: {build_s:.1f} s for {len(built)} libraries (one nvcc each, in parallel)")
+    for name, (path, nvcc_log) in built.items():
+        ptxas = " | ".join(ln.strip() for ln in nvcc_log.splitlines()
+                           if "registers" in ln or "spill" in ln)
+        log(f"  {name}: {os.path.relpath(path, ROOT)} [{ptxas}]")
 
     scene, _ = build_scene(W, H)
     scene = scene.to(dev)
     textures = with_mips(demo_textures().to(dev))
-    counts = scene.counts
+    ncount = scene.counts
+    L = ncount["lights_point"] + ncount["lights_direct"]
     pix = 1.0 / H
+    table = pack_scene(scene, textures.atlas)
 
-    # 2. kernel vs twin ----------------------------------------------------------
+    # 2. probe kernel vs twin --------------------------------------------------
     ro, rd = primary_rays(scene.camera, W, H)
     rng = np.random.default_rng(0)
     ro2 = rng.uniform([-12.0, -3.0, -6.0], [12.0, 6.0, 10.0], (N_RANDOM, 3))
     rd2 = rng.normal(size=(N_RANDOM, 3))
     rd2 /= np.linalg.norm(rd2, axis=-1, keepdims=True)
-    ro_all = torch.cat([ro, torch.from_numpy(ro2.astype(np.float32)).to(dev)]).contiguous()
-    rd_all = torch.cat([rd, torch.from_numpy(rd2.astype(np.float32)).to(dev)]).contiguous()
-    max_err = 0.0
+    ro2 = torch.from_numpy(ro2.astype(np.float32)).to(dev)
+    rd2 = torch.from_numpy(rd2.astype(np.float32)).to(dev)
+    ro_all = torch.cat([ro, ro2]).contiguous()
+    rd_all = torch.cat([rd, rd2]).contiguous()
+    err = {}
     for flipped in (True, False):
         fk, ik = sp.step_probe(scene, textures.atlas, ro_all, rd_all, pix_angle=pix,
                                shade_flipped=flipped, device=dev)
         torch.cuda.synchronize()
         buf, hdr = sp.pack_scene(scene, textures.atlas, shade_flipped=flipped)
         fr, ir = sp.step_probe_ref(buf, hdr, ro_all, rd_all, pix)
-        ok, st = compare_probe(fk, ik, fr, ir, counts)
-        max_err = max(max_err, st["max_abs_err"])
+        ok, st = compare_probe(fk, ik, fr, ir, ncount)
+        err["step_probe"] = max(err.get("step_probe", 0.0), st["max_abs_err"])
         log(f"phase probe (shade_flipped={flipped}, {ro_all.shape[0]} rays): "
             + json.dumps(st) + (" PASS" if ok else " FAIL"))
         if not ok:
             fail("step_probe kernel disagrees with its twin")
         del fk, ik, fr, ir
 
-    # 3. gate --------------------------------------------------------------------
-    gscene, _ = build_scene(GATE_W, GATE_H)
-    gcfg = RenderConfig(width=GATE_W, height=GATE_H, iterations=5, extra_refraction_steps=6)
-    before = sp.step_probe.launches
-    got = render(gscene, textures, gcfg, device=dev).cpu().numpy()
-    want = np.load(os.path.join(ROOT, "txr", "ref", "gate_oracle.npz"))["img"]
-    ok, frac, worst = golden_check(got, want)
-    log(f"phase gate ({GATE_W}x{GATE_H}): {frac:.3%} pixels over 2e-3 (limit 1.5%), "
-        f"worst interior |err| {worst:.4f} (limit 0.5), probe launches "
-        f"{sp.step_probe.launches - before} -> {'PASS' if ok else 'FAIL'}")
-    if not ok or sp.step_probe.launches == before:
-        fail("gate render does not match the oracle or did not launch the kernel")
+    # 3. sweep kernels vs twins ------------------------------------------------
+    buf, hdr = table
+    tk, sk = nh.launch(buf, hdr, ro_all, rd_all)
+    torch.cuda.synchronize()
+    tr, sr = nh.nearest_hit_ref(buf, hdr, ro_all, rd_all)
+    ok, st = compare_nearest(tk, sk, tr, sr)
+    err["nearest_hit"] = st["max_abs_err"]
+    log(f"phase sweeps nearest_hit ({ro_all.shape[0]} rays): {json.dumps(st)}"
+        + (" PASS" if ok else " FAIL"))
+    if not ok:
+        fail("nearest_hit kernel disagrees with its twin")
+    del tk, sk, tr, sr
+    so, sd, sdist = shadow_rays(scene, textures, ro, rd, table, pix)
+    sdist2 = torch.from_numpy(rng.uniform(0.5, 3e4, N_RANDOM).astype(np.float32)).to(dev)
+    so_all = torch.cat([so, ro2]).contiguous()
+    sd_all = torch.cat([sd, rd2]).contiguous()
+    sdist_all = torch.cat([sdist, sdist2]).contiguous()
+    k = ss.launch(buf, hdr, so_all, sd_all, sdist_all)
+    torch.cuda.synchronize()
+    ok, st = compare_shadow(k, ss.shadow_sweep_ref(buf, hdr, so_all, sd_all, sdist_all))
+    err["shadow_sweep"] = st["max_abs_err"]
+    log(f"phase sweeps shadow_sweep ({so_all.shape[0]} rays: {L} lights x {ro.shape[0]} "
+        f"primary rays + {N_RANDOM} random): {json.dumps(st)}" + (" PASS" if ok else " FAIL"))
+    if not ok:
+        fail("shadow_sweep kernel disagrees with its twin")
+    del k, so_all, sd_all, sdist_all
 
-    # 4. 1080p forward -----------------------------------------------------------
+    # 4-5. gate, both routes -----------------------------------------------------
+    gscene, _ = build_scene(GATE_W, GATE_H)
+    want = np.load(os.path.join(ROOT, "txr", "ref", "gate_oracle.npz"))["img"]
+    for fused, kernels in (("auto", ("step_probe",)), ("off", ("nearest_hit", "shadow_sweep"))):
+        gcfg = RenderConfig(width=GATE_W, height=GATE_H, iterations=5, extra_refraction_steps=6,
+                            fused=fused)
+        reset_counts()
+        got = render(gscene, textures, gcfg, device=dev).cpu().numpy()
+        c = counts()
+        ok, frac, worst = golden_check(got, want)
+        name = "gate" if fused == "auto" else "gate-off"
+        log(f"phase {name} ({GATE_W}x{GATE_H}, fused={fused}): {frac:.3%} pixels over 2e-3 "
+            f"(limit 1.5%), worst interior |err| {worst:.4f} (limit 0.5), launches {c} -> "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok or not all(c[k] for k in kernels):
+            fail(f"{name} render does not match the oracle or did not launch {kernels}")
+
+    # 6. 1080p forward -----------------------------------------------------------
     cfg = RenderConfig(width=W, height=H, iterations=5,
                        extra_refraction_steps=auto_refraction_steps(scene))
-    sp.step_probe.launches = 0
+    reset_counts()
     img = render(scene, textures, cfg, device=dev)
     torch.cuda.synchronize()
-    launches = sp.step_probe.launches
+    launches = counts()
     finite = bool(torch.isfinite(img).all())
-    if img.shape != (H, W, 3) or not finite or launches == 0:
+    if img.shape != (H, W, 3) or not finite or launches["step_probe"] == 0:
         fail(f"1080p frame: shape {tuple(img.shape)}, finite {finite}, launches {launches}")
     torch.cuda.reset_peak_memory_stats()
     frame_ms = cuda_ms(lambda: render(scene, textures, cfg, device=dev), FRAMES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase forward ({W}x{H}): {frame_ms:.2f} ms/frame, {W * H / frame_ms * 1e3:.4g} "
+        f"rays/s, launches {launches}/frame, peak {peak_gb:.2f} GB")
+    target = img.detach()
+    del img
 
-    # the kernel alone, on tables packed once: the wrapper's packing is a
-    # few dozen small host-side ops that would time the host, not the card
-    n = ro.shape[0]
-    buf, hdr = sp.pack_scene(scene, textures.atlas)
-    probe = lambda: sp.launch(buf, hdr, ro, rd, pix)
-    probe()
-    probe_ms = cuda_ms(probe, PROBE_REPS)
-    twin = lambda: sp.step_probe_ref(buf, hdr, ro, rd, pix)
-    twin()
-    plain_ms = cuda_ms(twin, 2)
-    nf = sp.n_rows(counts)
-    flops = probe_ops_per_ray(counts) * n
-    nbytes = n * (24 + 4 * nf + 12) + buf.numel() * 4
-    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_S) * 1e3
-    bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_S else "bytes"
-    log(f"phase forward ({W}x{H}): {frame_ms:.2f} ms/frame, {n / frame_ms * 1e3:.4g} rays/s, "
-        f"{launches} probe launches/frame, peak {peak_gb:.2f} GB; probe kernel "
-        f"{probe_ms:.3f} ms/launch at {n} rays (twin {plain_ms:.1f} ms, bound "
-        f"{bound_ms:.3f} ms by {bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.0f} MB)")
+    # 7. gradients: card vs CPU, probe route vs eager route ----------------------
+    def interior(w, h):
+        """[h, w] mask of pixels whose 3×3 neighbours hit the same primitive
+        first (CPU sweep)."""
+        s, _ = build_scene(w, h)
+        with torch.no_grad():
+            pro, prd = primary_rays(s.camera, w, h)
+            _, ty, idx = nearest_hit(s, pro, prd)
+            slot = (ty * 1000 + idx).reshape(1, 1, h, w).double()
+            pad = lambda x: torch.nn.functional.pad(x, (1, 1, 1, 1), mode="replicate")
+            hi = torch.nn.functional.max_pool2d(pad(slot), 3, 1)
+            lo = -torch.nn.functional.max_pool2d(pad(-slot), 3, 1)
+        return (hi == lo).reshape(h, w)
+
+    def grads(w, h, device, tex, fused, mask):
+        s, _ = build_scene(w, h)
+        leaves = float_leaves(s)
+        for v in leaves.values():
+            v.requires_grad_(True)
+        gcfg = RenderConfig(width=w, height=h, iterations=5,
+                            extra_refraction_steps=auto_refraction_steps(s), fused=fused)
+        img = render(s, tex, gcfg, device=device)
+        loss = (img * img * mask.to(img.device)[..., None]).sum() / (w * h)
+        g = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        return {k: torch.zeros_like(v) if x is None else x.detach().cpu()
+                for (k, v), x in zip(leaves.items(), g)}
+
+    def grad_diff(got, ref):
+        """Leaves over the bound, and the largest |g − g_ref| / (|g_ref| + tiny)."""
+        bad, worst = [], 0.0
+        for k, r in ref.items():
+            d, n = float((got[k] - r).norm()), float(r.norm())
+            worst = max(worst, d / max(n, 1e-12) if d > GRAD_ABS else 0.0)
+            if d > GRAD_REL * n + GRAD_ABS:
+                bad.append((k, d, n))
+        return bad, worst
+
+    mask = interior(GRAD_W, GRAD_H)
+    g_cpu = grads(GRAD_W, GRAD_H, torch.device("cpu"), demo_textures(), "off", mask)
+    g_off = grads(GRAD_W, GRAD_H, dev, textures, "off", mask)
+    g_fused = grads(GRAD_W, GRAD_H, dev, textures, "auto", mask)
+    nonzero = sum(float(v.abs().sum()) > 0 for v in g_cpu.values())
+    for name, got, ref in (("card vs CPU, fused=off", g_off, g_cpu),
+                           ("card, fused=auto vs fused=off", g_fused, g_off)):
+        bad, worst = grad_diff(got, ref)
+        log(f"phase grad ({GRAD_W}x{GRAD_H}, {int(mask.sum())} interior pixels, {name}): "
+            f"{len(ref)} leaves ({nonzero} nonzero "
+            f"on the CPU), worst relative difference {worst:.3g} (limit {GRAD_REL}) -> "
+            + ("PASS" if not bad else f"FAIL {bad}"))
+        if bad or not nonzero:
+            fail(f"gradients differ ({name})")
+
+    # 8. 1080p forward + backward ------------------------------------------------
+    scene_cpu, _ = build_scene(W, H)
+    train = {}
+
+    def train_step(fused, remat=True, nudge=0.0):
+        leaves = {k: v.to(dev).requires_grad_(True) for k, v in float_leaves(scene_cpu).items()}
+        if nudge:
+            moved = leaves["camera.pos"].detach() + torch.tensor([nudge, 0.0, 0.0], device=dev)
+            leaves["camera.pos"] = moved.requires_grad_(True)
+        s = unflatten_like(scene_cpu, leaves)
+        tcfg = RenderConfig(width=W, height=H, iterations=5,
+                            extra_refraction_steps=auto_refraction_steps(scene_cpu),
+                            fused=fused, remat=remat)
+        img = render(s, textures, tcfg, device=dev)
+        return leaves, torch.autograd.grad((img * img).mean(), list(leaves.values()),
+                                           allow_unused=True)
+
+    for fused in ("off", "auto"):
+        reset_counts()
+        leaves, g = train_step(fused)
+        torch.cuda.synchronize()
+        c = counts()
+        finite = all(bool(torch.isfinite(x).all()) for x in g if x is not None)
+        total = sum(float(x.abs().sum()) for x in g if x is not None)
+        kernels = ("nearest_hit", "shadow_sweep") if fused == "off" else ("step_probe",)
+        if not finite or total == 0.0 or not all(c[k] for k in kernels):
+            fail(f"1080p fwd+bwd (fused={fused}): finite {finite}, sum |g| {total}, "
+                 f"launches {c}")
+        del leaves, g
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(lambda: train_step(fused), TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        train[fused] = dict(step_ms=step_ms, peak_gb=peak, launches=c)
+        log(f"phase fwd+bwd ({W}x{H}, fused={fused}): {step_ms:.1f} ms/step over "
+            f"{TRAIN_STEPS} steps, peak {peak:.2f} GB, launches per step {c}, "
+            f"sum |g| {total:.4g}, all finite -> PASS")
+    # the whole-frame gradient's conditioning: the same step with the camera
+    # moved by about two float32 ulps
+    _, g = train_step("off", nudge=1e-6)
+    log(f"phase fwd+bwd ({W}x{H}, fused=off, camera x + 1e-6): sum |g| "
+        f"{sum(float(x.abs().sum()) for x in g if x is not None):.4g}")
+    del g
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        train_step("off", remat=False)
+        torch.cuda.synchronize()
+        log(f"phase fwd+bwd ({W}x{H}, fused=off, remat=False): "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms for one step (host clock), peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    except torch.cuda.OutOfMemoryError:
+        log(f"phase fwd+bwd ({W}x{H}, fused=off, remat=False): out of device memory")
+    torch.cuda.empty_cache()
+
+    # 9. optimize ----------------------------------------------------------------
+    guess = unflatten_like(scene_cpu, {
+        "camera.pos": scene_cpu.camera.pos + torch.tensor([0.04, -0.03, 0.05]),
+        "spheres.pos": scene_cpu.spheres.pos + torch.tensor([0.06, 0.04, -0.05])})
+    ocfg = RenderConfig(width=W, height=H, iterations=5,
+                        extra_refraction_steps=auto_refraction_steps(scene_cpu), fused="off")
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = os.path.join(tmp, "steps.jsonl")
+        _, losses = optimize_scene(guess, textures, ocfg, target, steps=OPT_STEPS, lr=5e-3,
+                                   param_paths=["camera.pos", "spheres.pos",
+                                                "spheres.mat.color"],
+                                   metrics_path=metrics, device=dev)
+        with open(metrics) as f:
+            walls = [json.loads(line)["wall_s"] for line in f]
+    ok = losses[-1] < losses[0] and all(np.isfinite(losses))
+    log(f"phase optimize ({W}x{H}, fused=off, {OPT_STEPS} Adam steps): losses "
+        f"{[f'{v:.6g}' for v in losses]}, wall s per step {walls} -> "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        fail("optimize_scene did not lower the loss")
+
+    # each kernel alone, on tables packed once, at the main path's widths ----------
+    n, ns = ro.shape[0], so.shape[0]
+    flops = dict(step_probe=probe_ops_per_ray(ncount) * n,
+                 nearest_hit=sweep_ops_per_ray(ncount) * n,
+                 shadow_sweep=shadow_ops_per_ray(ncount) * ns)
+    tab = buf.numel() * 4
+    nbytes = dict(step_probe=n * (24 + 4 * sp.n_rows(ncount) + 12) + tab,
+                  nearest_hit=n * (24 + 8) + tab,
+                  shadow_sweep=ns * (28 + 4 + 12 * ncount["rings"]) + tab)
+    runs = dict(step_probe=(lambda: sp.launch(buf, hdr, ro, rd, pix),
+                            lambda: sp.step_probe_ref(buf, hdr, ro, rd, pix)),
+                nearest_hit=(lambda: nh.launch(buf, hdr, ro, rd),
+                             lambda: nh.nearest_hit_ref(buf, hdr, ro, rd)),
+                shadow_sweep=(lambda: ss.launch(buf, hdr, so, sd, sdist),
+                              lambda: ss.shadow_sweep_ref(buf, hdr, so, sd, sdist)))
+    sources = dict(step_probe="txr/kernels/pallas_step.py:652",
+                   nearest_hit="txr/kernels/pallas_intersect.py:375",
+                   shadow_sweep="txr/kernels/pallas_intersect.py:489")
+    main_launches = dict(step_probe=launches["step_probe"],
+                         nearest_hit=train["off"]["launches"]["nearest_hit"],
+                         shadow_sweep=train["off"]["launches"]["shadow_sweep"])
+    rows = []
+    for name, (kernel, twin) in runs.items():
+        kernel()
+        ms = cuda_ms(kernel, KERNEL_REPS)
+        twin()
+        plain_ms = cuda_ms(twin, 2)
+        bound_ms, bound_by = bound(flops[name], nbytes[name])
+        rays = n if name != "shadow_sweep" else ns
+        log(f"kernel {name}: {ms:.3f} ms per launch at {rays} rays (twin {plain_ms:.1f} ms, "
+            f"bound {bound_ms:.3f} ms by {bound_by}: {flops[name] / 1e9:.2f} GFLOP, "
+            f"{nbytes[name] / 1e6:.0f} MB)")
+        rows.append(dict(name=name, route="cuda", source=f"txr_torch/kernels/csrc/{name}.cu",
+                         replaces=sources[name], launches=main_launches[name],
+                         max_abs_err=err[name], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(json.dumps({"kernels": [{
-        "name": "step_probe", "route": "cuda",
-        "source": "txr_torch/kernels/csrc/step_probe.cu",
-        "replaces": "txr/kernels/pallas_step.py:652",
-        "launches": launches, "max_abs_err": max_err, "ms": probe_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+    print(json.dumps({"kernels": rows}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

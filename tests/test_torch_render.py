@@ -57,6 +57,17 @@ def test_render_matches_oracle_32x18(small):
     assert ok, (frac, worst)
 
 
+def test_render_off_matches_oracle_32x18(small):
+    """The eager route (fused="off": step_jnp over the nearest-hit and
+    shadow-sweep twins) passes the same criterion against the oracle."""
+    _, _, oracle = small
+    scene, _ = tdemo.build_scene(32, 18)
+    got = rr.render(scene, tdemo.demo_textures(), RenderConfig(**SMALL, fused="off"),
+                    device="cpu").numpy().astype(np.float64)
+    ok, frac, worst = golden_check(got, oracle, edge_frac=0.01)
+    assert ok, (frac, worst)
+
+
 def test_gate_render_matches_oracle_96x54():
     """The bench gate: 96×54, iterations=5, extra_refraction_steps=6 vs the
     cached f64 oracle image (txr/ref/gate_oracle.npz)."""

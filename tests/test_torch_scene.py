@@ -124,3 +124,22 @@ def test_entry_points_without_cuda_raise(monkeypatch, entry):
     launches = step_probe.launches
     assert render(scene, tex, cfg, device="cpu").shape == (8, 8, 3)
     assert step_probe.launches == launches     # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("rows", [6, 300])
+def test_take_matches_indexing(rows):
+    """utils.index.take: the values of table[idx] and the same gradient, by
+    the one-hot product (small tables) or index_add (large ones), to f32
+    rounding."""
+    from txr_torch.utils.index import ONE_HOT_ROWS, take
+
+    assert (rows <= ONE_HOT_ROWS) == (rows == 6)
+    rng = np.random.default_rng(rows)
+    table = torch.from_numpy(rng.normal(size=(rows, 3)).astype(np.float32)).requires_grad_(True)
+    idx = torch.from_numpy(rng.integers(0, rows, (64, 5)))
+    w = torch.from_numpy(rng.normal(size=(64, 5, 3)).astype(np.float32))
+    got = take(table, idx)
+    torch.testing.assert_close(got, table[idx], rtol=0, atol=0)
+    (g,) = torch.autograd.grad((got * w).sum(), table)
+    (want,) = torch.autograd.grad((table[idx] * w).sum(), table)
+    torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-5)

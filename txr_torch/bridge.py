@@ -55,6 +55,14 @@ def scene_to_numpy(scene: T.Scene):
     return out
 
 
+def grads_to_numpy(grads):
+    """{dotted path: gradient tensor or None} of the port (e.g. from
+    ``torch.autograd.grad`` over ``scene.types.float_leaves``) → {keystr:
+    ndarray}, keyed like the JAX package's gradient pytree, so gradients
+    compare leaf for leaf; None (an unused leaf) is left out."""
+    return {f".{path}": g.detach().cpu().numpy() for path, g in grads.items() if g is not None}
+
+
 def textures_from_numpy(sphere=(), ring=None, box=None, cubemap=None) -> TextureSet:
     """Raw texture images (numpy [H,W,4] f32; cubemap [6,S,S,4]) → the
     port's TextureSet on the CPU, before ``with_mips``."""

@@ -20,6 +20,11 @@ def conj(q):
     return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
 
 
+def inv(q):
+    """Quaternion inverse: conj(q) / |q|² (rt.frag:290-293)."""
+    return conj(q) / (q * q).sum(-1, keepdim=True)
+
+
 def mul(q1, q2):
     """Hamilton product, component layout per rt.frag:295-303."""
     x1, y1, z1, w1 = q1.unbind(-1)

@@ -1,4 +1,5 @@
-"""Closed-form torus quartic roots (txr/geometry/torus.py:182-303).
+"""Closed-form torus quartic roots and the differentiable torus root
+(txr/geometry/torus.py:182-371).
 
 Ferrari: the largest root of the resolvent cubic by Newton from the Lagrange
 upper bound, then two quadratics.  A complex pair reports its real part and
@@ -11,7 +12,10 @@ from __future__ import annotations
 
 import torch
 
+from txr_torch.geometry import quaternion as quat
+
 RESOLVENT_NEWTON_ITERS = 20
+POLISH_R = 2       # differentiable Newton steps on the winner
 
 
 def _resolvent_root(p, qq, r):
@@ -113,3 +117,31 @@ def _newton_refine(ts, coeffs, steps):
         ok = fp.abs() > 1e-6
         ts = ts - torch.where(ok, f / torch.where(ok, fp, 1.0), 0.0)
     return ts
+
+
+def torus_polish_t(ro, rd, pos, q, form, t0):
+    """Differentiable t of an already-found torus root (torus.py:338-355):
+    POLISH_R Newton steps from the detached sweep root ``t0`` (+inf on a
+    miss), so autograd sees only the implicit-function gradient
+    −(∂f/∂θ)/(∂f/∂t).  The steps run on the factored quartic, as the sweeps
+    do (``newton_refine_factored``), so the recompute lands where the sweep's
+    root did; the implicit gradient of that root is the JAX package's in
+    exact arithmetic.  Every argument is per ray, [R, ...]."""
+    rol = quat.rotate(q, ro - pos)
+    rdl = quat.rotate(q, rd)
+    R, r = form[..., 0], form[..., 1]
+    hit = torch.isfinite(t0)
+    ts = newton_refine_factored(torch.where(hit, t0.detach(), 0.0), rol.unbind(-1),
+                                rdl.unbind(-1), R * R, r * r, POLISH_R)
+    return torch.where(hit, ts, float("inf"))
+
+
+def torus_normal(ro, rd, t, pos, q, form):
+    """Gradient normal p·(|p|² − r² − R²·(1, 1, −1)) in the torus frame,
+    rotated back (rt.frag:488-496); one primitive per ray."""
+    p = quat.rotate(q, ro - pos) + quat.rotate(q, rd) * t[..., None]
+    R, r = form[..., 0], form[..., 1]
+    k = (p * p).sum(-1) - r * r
+    R2 = R * R
+    n = quat.rotate(quat.inv(q), p * torch.stack([k - R2, k - R2, k + R2], dim=-1))
+    return n / torch.sqrt((n * n).sum(-1, keepdim=True) + 1e-30)

@@ -37,27 +37,12 @@
 
 namespace {
 
-using txr::f3;
+using namespace txr;  // f3, Meta, the record widths and flags of the packed table
 
 constexpr int kThreads = 128;
 constexpr float LOD_COS_MIN = 0.125f;
 constexpr float MAX_DIST = 1.0e6f;
 constexpr int KIND_RGBA = 1, KIND_BOX = 2;
-constexpr int FLAG_ONE_SIDE = 1, FLAG_SHADOW = 2, FLAG_FRESNEL = 4, FLAG_TIR = 8,
-              FLAG_SHADE_FLIPPED = 16;
-// record widths of the packed scene table (step_probe.py REC)
-constexpr int RPL = 6, RSP = 9, RSU = 19, RBX = 10, RTO = 9, RRI = 9, RLP = 7, RLD = 4;
-
-// Header: counts (planes, spheres, surfaces, boxes, toruses, rings, point
-// lights, direct lights), n_atlas, flags, section offsets (the same eight,
-// then materials, texture slots, texture dims), buffer length.
-struct Meta {
-  int n_pl, n_sp, n_su, n_bx, n_to, n_ri, n_lp, n_ld;
-  int n_atlas, flags;
-  int o_pl, o_sp, o_su, o_bx, o_to, o_ri, o_lp, o_ld, o_mat, o_texslot, o_texdim;
-  int n_buf;
-  float pix_angle;
-};
 
 __device__ __forceinline__ float pow5(float x) {
   float x2 = x * x;
@@ -69,12 +54,10 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ rd, float* __restrict__ fout,
                       int* __restrict__ iout, long long n) {
   extern __shared__ float sm[];
-  for (int k = threadIdx.x; k < m.n_buf; k += blockDim.x) sm[k] = buf[k];
-  __syncthreads();
+  txr::stage_table(m, buf, sm);
   const long long ray = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (ray >= n) return;
 
-  const bool one_side = m.flags & FLAG_ONE_SIDE;
   const float* PL = sm + m.o_pl;
   const float* SP = sm + m.o_sp;
   const float* SU = sm + m.o_su;
@@ -91,29 +74,9 @@ __global__ void __launch_bounds__(kThreads)
   const f3 d = {rd[3 * ray], rd[3 * ray + 1], rd[3 * ray + 2]};
 
   // ---- nearest-hit sweep (calcInter), reference slot order --------------
-  float tmin = txr::INF_T;
-  int slot = 0, s = 0;
-  float t;
-  for (int k = 0; k < m.n_pl; ++k, ++s)
-    if (txr::plane_test(PL + RPL * k, o, d, one_side, t) && t < tmin) tmin = t, slot = s;
-  for (int k = 0; k < m.n_sp; ++k, ++s) {
-    const float* S = SP + RSP * k;
-    if (txr::sphere_test(S, S[3], S[4] != 0.0f, o, d, t) && t < tmin) tmin = t, slot = s;
-  }
-  for (int k = 0; k < m.n_su; ++k, ++s)
-    if (txr::surface_test(SU + RSU * k, o, d, t) && t < tmin) tmin = t, slot = s;
-  for (int k = 0; k < m.n_bx; ++k, ++s)
-    if (txr::box_test(BX + RBX * k, o, d, t) && t < tmin) tmin = t, slot = s;
-  for (int k = 0; k < m.n_to; ++k, ++s)
-    if (txr::torus_test(TO + RTO * k, o, d, t) && t < tmin) tmin = t, slot = s;
-  for (int k = 0; k < m.n_ri; ++k, ++s) {
-    float x, pp;
-    if (txr::ring_test(RI + RRI * k, o, d, t, x, pp) && t < tmin) tmin = t, slot = s;
-  }
-  for (int k = 0; k < m.n_lp; ++k, ++s) {
-    const float* L = LP + RLP * k;
-    if (txr::sphere_test(L, L[3], false, o, d, t) && t < tmin) tmin = t, slot = s;
-  }
+  float tmin;
+  int slot;
+  txr::nearest_sweep(m, sm, o, d, tmin, slot);
 
   const bool hit = tmin < txr::INF_T;
   const float ts = hit ? tmin : 0.0f;
@@ -284,29 +247,13 @@ __global__ void __launch_bounds__(kThreads)
     float spec = m_spec > 0.0f ? powf(fmaxf(sdp, 1e-12f), m_spec) : 0.0f;
     F[row++ * N] = dp * wgt;
     F[row++ * N] = spec;
-    bool solid = false;
-    if (shadows) {
-      float tt;
-      for (int k = 0; k < m.n_sp; ++k)
-        solid |= txr::sphere_test(SP + RSP * k, SP[RSP * k + 3], false, so, ldir, tt) && tt < dist;
-      for (int k = 0; k < m.n_su; ++k)
-        solid |= txr::surface_test(SU + RSU * k, so, ldir, tt) && tt < dist;
-      for (int k = 0; k < m.n_bx; ++k)
-        solid |= txr::box_test(BX + RBX * k, so, ldir, tt) && tt < dist;
-      for (int k = 0; k < m.n_to; ++k)
-        solid |= txr::torus_test(TO + RTO * k, so, ldir, tt) && tt < dist;
-      if (!one_side)
-        for (int k = 0; k < m.n_pl; ++k)
-          solid |= txr::plane_test(PL + RPL * k, so, ldir, one_side, tt) && tt < dist;
-    }
-    F[row++ * N] = solid ? 1.0f : 0.0f;
+    F[row++ * N] = shadows && txr::occluded(m, sm, so, ldir, dist) ? 1.0f : 0.0f;
     for (int k = 0; k < m.n_ri; ++k) {
-      float tt, x, pp;
-      const float* Rg = RI + RRI * k;
-      bool h = shadows && txr::ring_test(Rg, so, ldir, tt, x, pp) && tt < dist;
+      float u = 0.0f, v = 0.0f;
+      bool h = shadows && txr::ring_shadow(RI + RRI * k, so, ldir, dist, u, v);
       F[row++ * N] = h ? 1.0f : 0.0f;
-      F[row++ * N] = h ? (pp - Rg[7]) / (Rg[8] - Rg[7]) : 0.0f;
-      F[row++ * N] = h ? x / sqrtf(fmaxf(pp, 1e-20f)) : 0.0f;
+      F[row++ * N] = u;
+      F[row++ * N] = v;
     }
   };
 
@@ -329,21 +276,16 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// hdr: 22 ints (Meta's integer fields in order), read on the host.
-// Returns cudaGetLastError() after the launch; the caller raises on non-zero.
-extern "C" int txr_step_probe(const float* buf, const int* hdr, float pix_angle, const float* ro,
+// hdr: the table header (txr::Meta's integer fields in order), read on the
+// host.  Returns cudaGetLastError() after the launch; the caller raises on
+// non-zero.
+extern "C" int txr_step_probe(const int* hdr, const float* buf, float pix_angle, const float* ro,
                               const float* rd, float* fout, int* iout, long long n,
                               void* stream) {
-  const Meta m{hdr[0],  hdr[1],  hdr[2],  hdr[3],  hdr[4],  hdr[5],  hdr[6],  hdr[7],
-               hdr[8],  hdr[9],  hdr[10], hdr[11], hdr[12], hdr[13], hdr[14], hdr[15],
-               hdr[16], hdr[17], hdr[18], hdr[19], hdr[20], hdr[21], pix_angle};
+  const Meta m = txr::make_meta(hdr, pix_angle);
   if (n <= 0) return 0;
   const size_t smem = (size_t)m.n_buf * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        step_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (int e = txr::allow_smem(step_probe_kernel, smem)) return e;
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
   step_probe_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(m, buf, ro, rd, fout, iout,
                                                                      n);

@@ -1,9 +1,11 @@
-// Per-primitive ray tests shared by the txr_torch CUDA kernels.
+// The packed scene table and the per-primitive ray tests shared by the
+// txr_torch CUDA kernels (step_probe.cu, nearest_hit.cu, shadow_sweep.cu).
 //
 // Device-function transcriptions of txr/kernels/pallas_intersect.py:41-210
 // (the same arithmetic in the same order as the PyTorch twins in
-// txr_torch/kernels/primitives.py), for one ray per thread.  Primitive
-// records are read from the packed scene table (see step_probe.py REC):
+// txr_torch/kernels/primitives.py and scene_table.py), for one ray per
+// thread.  Primitive records are read from the packed scene table (see
+// scene_table.py REC):
 //   plane   pos3 normal3
 //   sphere  pos3 radius hollow quat4
 //   surface pos3 quat4 coef6 v_min3 v_max3   (clip box clamped to +-INF_T)
@@ -274,6 +276,108 @@ __device__ __forceinline__ bool ring_test(const float* Rg, f3 o, f3 d, float& t,
   float y = lo.y + ld.y * t;
   p = x * x + y * y;
   return t > 0.0f && p < Rg[8] && p > Rg[7] && nzero;
+}
+
+// Header of the packed scene table (scene_table.py pack_scene): counts
+// (planes, spheres, surfaces, boxes, toruses, rings, point lights, direct
+// lights), n_atlas, flags, section offsets (the same eight, then materials,
+// texture slots, texture dims), buffer length.
+constexpr int HDR_LEN = 22;
+constexpr int FLAG_ONE_SIDE = 1, FLAG_SHADOW = 2, FLAG_FRESNEL = 4, FLAG_TIR = 8,
+              FLAG_SHADE_FLIPPED = 16;
+// record widths of the packed scene table (scene_table.py REC)
+constexpr int RPL = 6, RSP = 9, RSU = 19, RBX = 10, RTO = 9, RRI = 9, RLP = 7, RLD = 4;
+
+struct Meta {
+  int n_pl, n_sp, n_su, n_bx, n_to, n_ri, n_lp, n_ld;
+  int n_atlas, flags;
+  int o_pl, o_sp, o_su, o_bx, o_to, o_ri, o_lp, o_ld, o_mat, o_texslot, o_texdim;
+  int n_buf;
+  float pix_angle;
+};
+
+inline Meta make_meta(const int* h, float pix_angle) {
+  return Meta{h[0],  h[1],  h[2],  h[3],  h[4],  h[5],  h[6],  h[7],  h[8],  h[9],  h[10], h[11],
+              h[12], h[13], h[14], h[15], h[16], h[17], h[18], h[19], h[20], h[21], pix_angle};
+}
+
+// Every block copies the table into shared memory once; each primitive read
+// is then a broadcast.  The table is a few hundred floats for real scenes.
+__device__ __forceinline__ void stage_table(const Meta& m, const float* __restrict__ buf,
+                                            float* sm) {
+  for (int k = threadIdx.x; k < m.n_buf; k += blockDim.x) sm[k] = buf[k];
+  __syncthreads();
+}
+
+// calcInter (rt.frag:587-628): every slot in reference order (planes,
+// spheres, surfaces, boxes, toruses, rings, point-light bulbs) with strict
+// '<'.  A miss leaves tmin = INF_T and slot 0.
+__device__ __forceinline__ void nearest_sweep(const Meta& m, const float* sm, f3 o, f3 d,
+                                              float& tmin, int& slot) {
+  const bool one_side = m.flags & FLAG_ONE_SIDE;
+  tmin = INF_T;
+  slot = 0;
+  int s = 0;
+  float t;
+  for (int k = 0; k < m.n_pl; ++k, ++s)
+    if (plane_test(sm + m.o_pl + RPL * k, o, d, one_side, t) && t < tmin) tmin = t, slot = s;
+  for (int k = 0; k < m.n_sp; ++k, ++s) {
+    const float* S = sm + m.o_sp + RSP * k;
+    if (sphere_test(S, S[3], S[4] != 0.0f, o, d, t) && t < tmin) tmin = t, slot = s;
+  }
+  for (int k = 0; k < m.n_su; ++k, ++s)
+    if (surface_test(sm + m.o_su + RSU * k, o, d, t) && t < tmin) tmin = t, slot = s;
+  for (int k = 0; k < m.n_bx; ++k, ++s)
+    if (box_test(sm + m.o_bx + RBX * k, o, d, t) && t < tmin) tmin = t, slot = s;
+  for (int k = 0; k < m.n_to; ++k, ++s)
+    if (torus_test(sm + m.o_to + RTO * k, o, d, t) && t < tmin) tmin = t, slot = s;
+  for (int k = 0; k < m.n_ri; ++k, ++s) {
+    float x, pp;
+    if (ring_test(sm + m.o_ri + RRI * k, o, d, t, x, pp) && t < tmin) tmin = t, slot = s;
+  }
+  for (int k = 0; k < m.n_lp; ++k, ++s) {
+    const float* L = sm + m.o_lp + RLP * k;
+    if (sphere_test(L, L[3], false, o, d, t) && t < tmin) tmin = t, slot = s;
+  }
+}
+
+// inShadow's solid part (rt.frag:630-658): any occluder closer than dist.
+// Spheres are tested solid, planes occlude only when two-sided; rings are
+// left to the caller, which needs each ring's (hit, u, v).
+__device__ __forceinline__ bool occluded(const Meta& m, const float* sm, f3 o, f3 d,
+                                         float dist) {
+  const bool one_side = m.flags & FLAG_ONE_SIDE;
+  bool solid = false;
+  float t;
+  for (int k = 0; k < m.n_sp; ++k) {
+    const float* S = sm + m.o_sp + RSP * k;
+    solid |= sphere_test(S, S[3], false, o, d, t) && t < dist;
+  }
+  for (int k = 0; k < m.n_su; ++k) solid |= surface_test(sm + m.o_su + RSU * k, o, d, t) && t < dist;
+  for (int k = 0; k < m.n_bx; ++k) solid |= box_test(sm + m.o_bx + RBX * k, o, d, t) && t < dist;
+  for (int k = 0; k < m.n_to; ++k) solid |= torus_test(sm + m.o_to + RTO * k, o, d, t) && t < dist;
+  if (!one_side)
+    for (int k = 0; k < m.n_pl; ++k)
+      solid |= plane_test(sm + m.o_pl + RPL * k, o, d, one_side, t) && t < dist;
+  return solid;
+}
+
+// Ring k's shadow-ray hit closer than dist, with its (u, v):
+// u = (p - r1)/(r2 - r1), v = x/|xy|; zeros where there is no hit.
+__device__ __forceinline__ bool ring_shadow(const float* Rg, f3 o, f3 d, float dist, float& u,
+                                            float& v) {
+  float t, x, pp;
+  bool h = ring_test(Rg, o, d, t, x, pp) && t < dist;
+  u = h ? (pp - Rg[7]) / (Rg[8] - Rg[7]) : 0.0f;
+  v = h ? x / sqrtf(fmaxf(pp, 1e-20f)) : 0.0f;
+  return h;
+}
+
+// Raise the dynamic shared-memory limit of a kernel when its table needs it.
+template <typename Kernel>
+inline int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace txr

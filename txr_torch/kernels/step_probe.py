@@ -13,163 +13,52 @@ Output: ``f`` [NF, N] f32 with NF = 23 + L·(3 + 3·nr) rows in the order of
 ``pallas_step.py:558-571``, and ``i`` [3, N] int32 (slot, kind, req_k).
 
 ``step_probe`` launches the kernel on CUDA tensors (``launch``) and runs
-the twin ``step_probe_ref`` on CPU tensors.  Both read the same packed scene tables
-(``pack_scene``): one flat f32 buffer of per-type records, materials, the
-texture-slot and texture-size tables, plus an int header of counts and
-offsets.
+the twin ``step_probe_ref`` on CPU tensors.  Both read the packed scene
+table of ``scene_table.pack_scene``, as the nearest-hit and shadow kernels
+do.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import math
-import os
-import shutil
-import subprocess
-import threading
 
 import numpy as np
 import torch
 
 from txr_torch import resolve_device
-from txr_torch.kernels.primitives import (
-    INF_T,
-    _box_test,
-    _conj,
-    _plane_test,
-    _ring_test,
-    _rot,
-    _safe_recip,
-    _sphere_test,
-    _surface_test,
-    _torus_test,
+from txr_torch.kernels import build
+from txr_torch.kernels.primitives import INF_T, _conj, _rot, _safe_recip
+from txr_torch.kernels.scene_table import (  # noqa: F401  (pack_scene is public here)
+    FLAG_FRESNEL,
+    FLAG_SHADE_FLIPPED,
+    FLAG_SHADOW,
+    FLAG_TIR,
+    FLAG_ONE_SIDE,
+    MAX_DIST,
+    SLOT_ORDER,
+    _TYPES,
+    check_rays,
+    check_table,
+    counts_of,
+    occlusion_ref,
+    pack_scene,
+    sections,
+    set_flags,
+    sweep_ref,
 )
 
 _PI = 3.14159265358979
 LOD_COS_MIN = 0.125     # texture.py footprint_world
-MAX_DIST = 1.0e6        # maxDist, rt.frag:145
 
 # texture-request kinds emitted per lane
 KIND_NONE = 0
 KIND_RGBA = 1           # textured sphere / ring: color.rgb + alpha
 KIND_BOX = 2            # textured box: color.rgb * face weight
 
-# packed record widths (floats); csrc/step_probe.cu reads the same layout
-REC = dict(
-    planes=6,        # pos3 normal3
-    spheres=9,       # pos3 radius hollow quat4
-    surfaces=19,     # pos3 quat4 coef6 v_min3 v_max3 (clip box clamped to ±INF_T)
-    boxes=10,        # pos3 quat4 form3
-    toruses=9,       # pos3 quat4 form2
-    rings=9,         # pos3 quat4 r1 r2
-    lights_point=7,  # pos3 radius intensity linear_k quadratic_k
-    lights_direct=4,  # direction3 intensity
-)
-SLOT_ORDER = ("planes", "spheres", "surfaces", "boxes", "toruses", "rings",
-              "lights_point")
-_TYPES = SLOT_ORDER + ("lights_direct",)
-# header: 8 counts (_TYPES order), n_atlas, flags, 11 section offsets
-# (_TYPES order, then mat, texslot, texdim), n_buf
-HDR_LEN = 22
-FLAG_ONE_SIDE, FLAG_SHADOW, FLAG_FRESNEL, FLAG_TIR, FLAG_SHADE_FLIPPED = 1, 2, 4, 8, 16
-
 
 def n_rows(counts):
     L = counts["lights_point"] + counts["lights_direct"]
     return 23 + L * (3 + 3 * counts["rings"])
-
-
-def _flat(*cols):
-    return torch.cat([c.reshape(c.shape[0], math.prod(c.shape[1:])).to(torch.float32)
-                      for c in cols], 1)
-
-
-def pack_scene(scene, atlas, *, one_side=True, shadow_enabled=True, do_fresnel=True,
-               tir=True, shade_flipped=True):
-    """Scene + SceneAtlas + probe flags → (buf [n_buf] f32 on the scene's
-    device, header ints).  Built from device tensors with no host sync."""
-    c = scene.counts
-    dev = scene.device
-    sp, su, bx, to, ri = (scene.spheres, scene.surfaces, scene.boxes,
-                          scene.toruses, scene.rings)
-    lp, ld = scene.lights_point, scene.lights_direct
-    recs = dict(
-        planes=_flat(scene.planes.pos, scene.planes.normal),
-        spheres=_flat(sp.pos, sp.radius, sp.hollow, sp.quat),
-        surfaces=_flat(su.pos, su.quat, su.coef, torch.clamp(su.v_min, min=-INF_T),
-                       torch.clamp(su.v_max, max=INF_T)),
-        boxes=_flat(bx.pos, bx.quat, bx.form),
-        toruses=_flat(to.pos, to.quat, to.form),
-        rings=_flat(ri.pos, ri.quat, ri.r1, ri.r2),
-        lights_point=_flat(lp.pos, lp.radius, lp.intensity, lp.linear_k, lp.quadratic_k),
-        lights_direct=_flat(ld.direction, ld.intensity),
-    )
-    # material table in slot order; light-bulb slots carry zeros
-    mats = []
-    for name in SLOT_ORDER[:-1]:
-        m = getattr(scene, name).mat
-        mats.append(_flat(m.color, m.absorb, m.diffuse, m.reflect, m.refract,
-                          m.specular, m.kd, m.ks))
-    mats.append(torch.zeros((c["lights_point"], 12), device=dev))
-    # atlas slot of each scene slot's texture, -1 when untextured
-    none = lambda n: torch.full((n,), -1, dtype=torch.int64, device=dev)
-    slots = [none(c["planes"])]
-
-    def tex_slot(tex, slot_of):
-        t = tex.to(torch.int64)
-        return torch.where(t > 0, slot_of(t), -1)
-
-    if atlas is not None and atlas.n_sphere:
-        slots.append(tex_slot(sp.texture, lambda t: torch.clamp(t - 1, 0, atlas.n_sphere - 1)))
-    else:
-        slots.append(none(c["spheres"]))
-    slots.append(none(c["surfaces"]))
-    if atlas is not None and atlas.box_slot is not None:
-        slots.append(tex_slot(bx.texture, lambda t: atlas.box_slot))
-    else:
-        slots.append(none(c["boxes"]))
-    slots.append(none(c["toruses"]))
-    if atlas is not None and atlas.ring_slot is not None:
-        slots.append(tex_slot(ri.texture, lambda t: atlas.ring_slot))
-    else:
-        slots.append(none(c["rings"]))
-    slots.append(none(c["lights_point"]))
-    dims = atlas.dims if atlas is not None else ((0, 0),)
-    texdim = torch.tensor(dims, dtype=torch.float32, device=dev)
-
-    parts = [recs[k].reshape(-1) for k in _TYPES]
-    parts += [torch.cat(mats).reshape(-1), torch.cat(slots).to(torch.float32),
-              texdim.reshape(-1)]
-    offsets, off = [], 0
-    for p in parts:
-        offsets.append(off)
-        off += p.numel()
-    flags = ((FLAG_ONE_SIDE if one_side else 0) | (FLAG_SHADOW if shadow_enabled else 0)
-             | (FLAG_FRESNEL if do_fresnel else 0) | (FLAG_TIR if tir else 0)
-             | (FLAG_SHADE_FLIPPED if shade_flipped else 0))
-    hdr = [c[k] for k in _TYPES] + [len(dims), flags] + offsets + [off]
-    assert len(hdr) == HDR_LEN
-    return torch.cat(parts), tuple(hdr)
-
-
-# ---------------------------------------------------------------------------
-# The plain twin
-# ---------------------------------------------------------------------------
-
-def _sections(buf, hdr):
-    """numpy views of the packed tables, keyed like the Pallas operands."""
-    b = buf.detach().cpu().numpy()
-    cnt = dict(zip(_TYPES, hdr[:8]))
-    offs = hdr[10:21]
-    sec = {}
-    for j, k in enumerate(_TYPES):
-        sec[k] = b[offs[j]: offs[j] + cnt[k] * REC[k]].reshape(cnt[k], REC[k])
-    n_slots = sum(cnt[k] for k in SLOT_ORDER)
-    sec["mat"] = b[offs[8]: offs[8] + 12 * n_slots].reshape(n_slots, 12)
-    sec["texslot"] = b[offs[9]: offs[9] + n_slots]
-    sec["texdim"] = b[offs[10]: offs[10] + 2 * hdr[8]].reshape(hdr[8], 2)
-    return cnt, sec
 
 
 def _norm3(x, y, z):
@@ -185,7 +74,7 @@ def _pow5(x):
 def step_probe_ref(buf, hdr, ro, rd, pix_angle=0.0):
     """Plain PyTorch twin of the kernel over [N] tensors, Python loops over
     the primitive counts, on the tables of ``pack_scene``; see ``step_probe``."""
-    cnt, sec = _sections(buf, hdr)
+    cnt, sec = sections(buf, hdr)
     flags = hdr[9]
     one_side = bool(flags & FLAG_ONE_SIDE)
     dev = ro.device
@@ -202,32 +91,7 @@ def step_probe_ref(buf, hdr, ro, rd, pix_angle=0.0):
     o3, d3 = (rox, roy, roz), (rdx, rdy, rdz)
 
     # ---- nearest-hit sweep (calcInter) -------------------------------------
-    tmin = torch.full_like(rox, INF_T)
-    slot = torch.zeros(rox.shape, dtype=torch.int64, device=dev)
-    s = 0
-
-    def accept(t, hit):
-        nonlocal tmin, slot, s
-        upd = hit & (t < tmin)
-        tmin = torch.where(upd, t, tmin)
-        slot = torch.where(upd, s, slot)
-        s += 1
-
-    for i in range(cnt["planes"]):
-        accept(*_plane_test(PL[:, 0:3], PL[:, 3:6], i, o3, d3, one_side))
-    for i in range(cnt["spheres"]):
-        accept(*_sphere_test(SP[i, 0], SP[i, 1], SP[i, 2], SP[i, 3], SP[i, 4] != 0, o3, d3))
-    for i in range(cnt["surfaces"]):
-        accept(*_surface_test(SU[:, 0:3], SU[:, 3:7], SU[:, 7:13], SU[:, 13:16],
-                              SU[:, 16:19], i, o3, d3))
-    for i in range(cnt["boxes"]):
-        accept(*_box_test(BX[:, 0:3], BX[:, 3:7], BX[:, 7:10], i, o3, d3))
-    for i in range(cnt["toruses"]):
-        accept(*_torus_test(TO[:, 0:3], TO[:, 3:7], TO[:, 7:9], i, o3, d3))
-    for i in range(cnt["rings"]):
-        accept(*_ring_test(RI[:, 0:3], RI[:, 3:7], RI[:, 7], RI[:, 8], i, o3, d3)[:2])
-    for i in range(cnt["lights_point"]):
-        accept(*_sphere_test(LP[i, 0], LP[i, 1], LP[i, 2], LP[i, 3], None, o3, d3))
+    tmin, slot = sweep_ref(cnt, sec, o3, d3, one_side)
 
     hit = tmin < INF_T
     t_safe = torch.where(hit, tmin, 0.0)
@@ -427,31 +291,6 @@ def step_probe_ref(buf, hdr, ro, rd, pix_angle=0.0):
     else:   # the glossy probe shades with the unflipped normal
         sn = (nx * flip, ny * flip, nz * flip)
 
-    def shadow_sweep(d, dist):
-        solid = torch.zeros(rox.shape, dtype=torch.bool, device=dev)
-        occl = lambda t, h: h & (t < dist)
-        for i in range(cnt["spheres"]):
-            solid |= occl(*_sphere_test(SP[i, 0], SP[i, 1], SP[i, 2], SP[i, 3], None, so, d))
-        for i in range(cnt["surfaces"]):
-            solid |= occl(*_surface_test(SU[:, 0:3], SU[:, 3:7], SU[:, 7:13], SU[:, 13:16],
-                                         SU[:, 16:19], i, so, d))
-        for i in range(cnt["boxes"]):
-            solid |= occl(*_box_test(BX[:, 0:3], BX[:, 3:7], BX[:, 7:10], i, so, d))
-        for i in range(cnt["toruses"]):
-            solid |= occl(*_torus_test(TO[:, 0:3], TO[:, 3:7], TO[:, 7:9], i, so, d))
-        if not one_side:
-            for i in range(cnt["planes"]):
-                solid |= occl(*_plane_test(PL[:, 0:3], PL[:, 3:6], i, so, d, one_side))
-        rings = []
-        for i in range(cnt["rings"]):
-            t, h, x, _, pp = _ring_test(RI[:, 0:3], RI[:, 3:7], RI[:, 7], RI[:, 8], i, so, d)
-            h = occl(t, h)
-            r1, r2 = RI[i, 7], RI[i, 8]
-            nrm = torch.sqrt(torch.clamp(pp, min=1e-20))
-            rings += [torch.where(h, 1.0, 0.0), torch.where(h, (pp - r1) / (r2 - r1), 0.0),
-                      torch.where(h, x / nrm, 0.0)]
-        return torch.where(solid, 1.0, 0.0), rings
-
     light_rows = []
 
     def shade_probe(ldx, ldy, ldz, dist, wgt):
@@ -464,7 +303,7 @@ def step_probe_ref(buf, hdr, ro, rd, pix_angle=0.0):
         sdp = torch.clamp(rdx * rfx + rdy * rfy + rdz * rfz, 0.0, 1.0)
         spec = torch.where(m_spec > 0.0, torch.pow(torch.clamp(sdp, min=1e-12), m_spec), 0.0)
         if flags & FLAG_SHADOW:
-            solid, rings = shadow_sweep((ldx, ldy, ldz), dist)
+            solid, rings = occlusion_ref(cnt, sec, so, (ldx, ldy, ldz), dist, one_side)
         else:
             solid, rings = zero, [zero] * (3 * cnt["rings"])
         light_rows.extend([dp * wgt, spec, solid] + rings)
@@ -488,94 +327,29 @@ def step_probe_ref(buf, hdr, ro, rd, pix_angle=0.0):
     return f, i
 
 
-# ---------------------------------------------------------------------------
-# The CUDA kernel: build, load, launch
-# ---------------------------------------------------------------------------
-
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = (os.path.join(_HERE, "csrc", "txr_common.cuh"),
-            os.path.join(_HERE, "csrc", "step_probe.cu"))
-_BUILD_DIR = os.path.join(_HERE, "_build")
-# -fmad=false: no multiply-add contraction, so the kernel rounds as its twin
-# does (the f32 torus quartic is too ill-conditioned to tolerate either)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-
-
-def build():
-    """Compile ``csrc/step_probe.cu`` into a shared library under
-    ``kernels/_build`` unless a library for the same sources and flags is
-    there already.  Returns (path, compiler log); the log is empty when
-    nothing was compiled."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _SOURCES:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    path = os.path.join(_BUILD_DIR, f"libtxr_step_probe_{h.hexdigest()[:16]}.so")
-    if os.path.exists(path):
-        return path, ""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCES[1]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, path)
-    return path, res.stderr
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build()[0])
-            fn = lib.txr_step_probe
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
-
-
-def _check_rays(ro, rd, device):
-    for name, a in (("ro", ro), ("rd", rd)):
-        if a.device != device:
-            raise ValueError(f"step_probe: {name} is on {a.device}, expected {device}")
-        if a.dtype != torch.float32 or a.ndim != 2 or a.shape[1] != 3:
-            raise ValueError(f"step_probe: {name} must be [N, 3] float32, got "
-                             f"{tuple(a.shape)} {a.dtype}")
-        if not a.is_contiguous():
-            raise ValueError(f"step_probe: {name} must be contiguous")
-    if ro.shape != rd.shape:
-        raise ValueError("step_probe: ro and rd differ in shape")
-
-
 def step_probe(scene, atlas, ro, rd, *, one_side=True, shadow_enabled=True,
                do_fresnel=True, tir=True, pix_angle=0.0, shade_flipped=True,
-               device=None):
+               device=None, table=None):
     """Run the fused step probe on rays ro, rd [N, 3] f32 → (f [NF, N] f32,
     i [3, N] int32).  CUDA tensors launch the kernel; CPU tensors (with
     ``device="cpu"``) run ``step_probe_ref``.  ``scene`` lies on the rays'
-    device; ``atlas`` is the TextureSet's SceneAtlas or None."""
+    device; ``atlas`` is the TextureSet's SceneAtlas or None.  ``table``:
+    the (buf, hdr) of ``pack_scene`` for this scene and atlas, packed once
+    by the caller; packed here when None."""
     dev = resolve_device(device)
-    _check_rays(ro, rd, dev)
+    check_rays("step_probe", dev, ro, rd)
     if scene.device != dev:
         raise ValueError(f"step_probe: scene is on {scene.device}, expected {dev}")
-    buf, hdr = pack_scene(scene, atlas, one_side=one_side, shadow_enabled=shadow_enabled,
-                          do_fresnel=do_fresnel, tir=tir, shade_flipped=shade_flipped)
+    buf, hdr = pack_scene(scene, atlas) if table is None else table
+    hdr = set_flags(hdr, one_side=one_side, shadow_enabled=shadow_enabled,
+                    do_fresnel=do_fresnel, tir=tir, shade_flipped=shade_flipped)
     if dev.type == "cpu":
         return step_probe_ref(buf, hdr, ro, rd, pix_angle)
     return launch(buf, hdr, ro, rd, pix_angle)
+
+
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
 
 
 def launch(buf, hdr, ro, rd, pix_angle=0.0):
@@ -585,24 +359,15 @@ def launch(buf, hdr, ro, rd, pix_angle=0.0):
     dev = ro.device
     if dev.type != "cuda":
         raise ValueError(f"step_probe: no kernel for device {dev}")
-    _check_rays(ro, rd, dev)
-    if (buf.device != dev or buf.dtype != torch.float32 or not buf.is_contiguous()
-            or len(hdr) != HDR_LEN or buf.numel() != hdr[-1]):
-        raise ValueError("step_probe: buf must be pack_scene's f32 table on the rays' device")
+    check_rays("step_probe", dev, ro, rd)
+    check_table("step_probe", buf, hdr, dev)
     N = ro.shape[0]
-    f = torch.empty((n_rows(dict(zip(_TYPES, hdr[:8]))), N), dtype=torch.float32, device=dev)
+    f = torch.empty((n_rows(counts_of(hdr)), N), dtype=torch.float32, device=dev)
     i = torch.empty((3, N), dtype=torch.int32, device=dev)
     if N == 0:
         return f, i
-    lib = _load()
-    hdr_c = (ctypes.c_int * HDR_LEN)(*hdr)     # host memory, read by the launcher
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.txr_step_probe(buf.data_ptr(), ctypes.addressof(hdr_c),
-                                float(pix_angle), ro.data_ptr(), rd.data_ptr(),
-                                f.data_ptr(), i.data_ptr(), N, stream)
-    if rc != 0:
-        raise RuntimeError(f"step_probe kernel launch failed: cudaError {rc}")
+    build.run("step_probe", "txr_step_probe", _ARGS, dev, hdr, buf.data_ptr(),
+              float(pix_angle), ro.data_ptr(), rd.data_ptr(), f.data_ptr(), i.data_ptr(), N)
     step_probe.launches += 1
     return f, i
 

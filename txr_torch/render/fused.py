@@ -12,12 +12,12 @@ import torch
 
 from txr_torch.kernels.step_probe import KIND_BOX, KIND_RGBA, step_probe, unpack
 from txr_torch.render import texture as tx
-from txr_torch.render.intersect import _type_tables
+from txr_torch.render.intersect import _type_tables, shadow_from_probes
 from txr_torch.render.shading import reflect, refract
 from txr_torch.scene.types import TYPE_POINT_LIGHT, TYPE_SPHERE
 
 
-def _probe(scene, textures, cfg, ro, rd, shade_flipped):
+def _probe(scene, textures, cfg, ro, rd, shade_flipped, table=None):
     from txr_torch.render.trace import _pix_angle
 
     f, i = step_probe(
@@ -25,7 +25,7 @@ def _probe(scene, textures, cfg, ro, rd, shade_flipped):
         one_side=cfg.plane_oneside, shadow_enabled=cfg.shadow_enabled,
         do_fresnel=cfg.do_fresnel, tir=cfg.total_internal_reflection,
         pix_angle=_pix_angle(cfg) or 0.0, shade_flipped=shade_flipped,
-        device=ro.device)
+        device=ro.device, table=table)
     return unpack(f, i, scene.counts)
 
 
@@ -67,27 +67,6 @@ def _apply_texture(pr, texc):
     return mcol, alpha
 
 
-def shadow_from_probes(scene, textures, solid, ring_hit, ring_uv):
-    """Per-light shadow factor [R, L] from the any-hit probes (inShadow,
-    rt.frag:630-658): solid occlusion; an opaque ring hit shadows fully; a
-    textured ring attenuates by its texture alpha at the hit UV."""
-    sh = solid
-    if scene.counts["rings"] and ring_hit is not None:
-        textured = scene.rings.texture > 0
-        have_tex = textures.ring_alpha is not None
-        opaque = ~textured if have_tex else torch.ones_like(textured)
-        sh = torch.maximum(sh, (ring_hit & opaque).any(-1).to(sh.dtype))
-        if have_tex:
-            needa = (ring_hit & textured).reshape(-1)
-            lanes = torch.nonzero(needa).squeeze(-1)
-            if lanes.numel():
-                a = torch.zeros(needa.shape, dtype=sh.dtype, device=sh.device)
-                a.index_copy_(0, lanes, tx.sample_ring_alpha(textures,
-                                                             ring_uv.reshape(-1, 2)[lanes]))
-                sh = sh + a.reshape(ring_hit.shape).sum(-1)
-    return torch.clamp(sh, max=1.0)
-
-
 def _shade_from_probes(scene, textures, cfg, pr, mcol):
     """calcShade from the probes: ambient + Σ_lights (1 − shadow)·Phong
     (rt.frag:660-709)."""
@@ -124,10 +103,10 @@ def _light_color(scene, idx):
     return scene.lights_point.color[torch.clamp(idx, 0, n - 1)]
 
 
-def fused_reflected_color(scene, textures, cfg, ro, rd):
+def fused_reflected_color(scene, textures, cfg, ro, rd, table=None):
     """getReflectedColor (rt.frag:787-802): one extra probe pass whose
     shading probes use the unflipped hit normal."""
-    pr = _probe(scene, textures, cfg, ro, rd, shade_flipped=False)
+    pr = _probe(scene, textures, cfg, ro, rd, shade_flipped=False, table=table)
     hit0, ty, idx = _types_of(scene, pr)
     is_light = ty == TYPE_POINT_LIGHT
     hit = hit0 & ~is_light
@@ -139,15 +118,18 @@ def fused_reflected_color(scene, textures, cfg, ro, rd):
     return color
 
 
-def fused_step_fwd(scene, textures, cfg, st):
-    """One bounce step: st (dict of per-ray state) → the next state."""
+def fused_step_fwd(scene, textures, cfg, st, pr=None, table=None):
+    """One bounce step: st (dict of per-ray state) → the next state.  ``pr``:
+    the step's probe (``_probe``), run here when None; ``table``: the packed
+    scene table (``pack_scene``) of this scene and atlas."""
     ro, rd = st["ro"], st["rd"]
     alive = st["alive"]
     color, mask = st["color"], st["mask"]
     absorb_dist = st["absorb_dist"]
     bounces = st["bounces"]
 
-    pr = _probe(scene, textures, cfg, ro, rd, shade_flipped=True)
+    if pr is None:
+        pr = _probe(scene, textures, cfg, ro, rd, shade_flipped=True, table=table)
     t = pr["t"]
     hit, ty, idx = _types_of(scene, pr)
     act = alive & hit
@@ -185,7 +167,7 @@ def fused_step_fwd(scene, textures, cfg, st):
         lanes = torch.nonzero(glossy).squeeze(-1)
         rc = fused_reflected_color(scene, textures, cfg,
                                    shade_origin_out[lanes].contiguous(),
-                                   reflect(rd, n)[lanes].contiguous())
+                                   reflect(rd, n)[lanes].contiguous(), table)
         g = glossy[..., None]
         rc_full = torch.zeros_like(color).index_copy_(0, lanes, rc)
         color = torch.where(g, color + rc_full * reflect_mult[..., None] * mask, color)

@@ -16,6 +16,9 @@ import dataclasses
 
 import torch
 
+from txr_torch.geometry import quaternion as quat
+from txr_torch.utils.index import take
+
 _PI = 3.14159265358979  # PI_F, rt.frag:5
 
 MIP_MIN_SIZE = 4   # stop the pyramid when a side would shrink below this
@@ -75,20 +78,26 @@ class TextureSet:
 
 
 def quantize_u8(x):
-    """RGBA8 storage quantisation: values become exactly k/255 in f32."""
-    return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0) / 255.0
+    """RGBA8 storage quantisation: values become exactly k/255 in f32, with
+    a straight-through gradient so texture contents stay optimisable
+    (texture.py:161-169).  x + (q − x) rounds to q exactly: the two are
+    within 1/510 of each other, so q − x is exact (Sterbenz)."""
+    q = torch.round(torch.clamp(x.detach(), 0.0, 1.0) * 255.0) / 255.0
+    return x + (q - x.detach())
 
 
 def mip_down_u8(a, b, c, d):
     """Integer-exact RGBA8 2×2 box downsample, (a+b+c+d+2) >> 2 on the u8
-    codes — the only tie-proof formula (texture.py:172-184)."""
-    si = sum(torch.round(x * 255.0).to(torch.int32) for x in (a, b, c, d))
+    codes — the only tie-proof formula (texture.py:172-184).  No gradient:
+    ``_mip_levels`` routes it through the float mean."""
+    si = sum(torch.round(x.detach() * 255.0).to(torch.int32) for x in (a, b, c, d))
     return ((si + 2) >> 2).to(a.dtype) / 255.0
 
 
 def _mip_levels(tex):
     """Quantised 2×2 box pyramid; stops when a side would drop below
-    MIP_MIN_SIZE or become odd."""
+    MIP_MIN_SIZE or become odd.  Forward: the integer-exact level; backward:
+    the float mean of the four texels (straight-through, texture.py:198-203)."""
     levels = [quantize_u8(tex)]
     while True:
         t = levels[-1]
@@ -96,8 +105,10 @@ def _mip_levels(tex):
         if H % 2 or W % 2 or H // 2 < MIP_MIN_SIZE or W // 2 < MIP_MIN_SIZE:
             break
         r = t.reshape(H // 2, 2, W // 2, 2, t.shape[-1])
-        levels.append(mip_down_u8(r[:, 0, :, 0], r[:, 0, :, 1],
-                                  r[:, 1, :, 0], r[:, 1, :, 1]))
+        a, b, c, d = r[:, 0, :, 0], r[:, 0, :, 1], r[:, 1, :, 0], r[:, 1, :, 1]
+        mean = 0.25 * (a + b + c + d)
+        q = mip_down_u8(a, b, c, d)
+        levels.append(mean + (q - mean.detach()))
     return levels
 
 
@@ -145,6 +156,58 @@ def with_mips(textures: TextureSet) -> TextureSet:
     )
 
 
+LOD_COS_MIN = 0.125     # grazing-angle floor of the footprint's 1/cos
+
+
+def footprint_world(t, cos_in, pix_angle):
+    """World-space width of one sample's footprint at distance t
+    (texture.py:878-879)."""
+    return t * pix_angle / torch.clamp(cos_in, min=LOD_COS_MIN)
+
+
+def _lod_from_texels(texels):
+    return torch.log2(torch.clamp(texels, min=1.0))
+
+
+def lod_sphere(fw, radius, shape0):
+    """Spherical mapping: texels per world unit max(W/2π, H/π)/r
+    (texture.py:882-890).  shape0 = (H, W): ints or per-ray tensors."""
+    H, W = (torch.as_tensor(v, dtype=fw.dtype, device=fw.device) for v in shape0)
+    tpw = torch.maximum(W / (2.0 * _PI), H / _PI) / torch.clamp(radius, min=1e-6)
+    return _lod_from_texels(fw * tpw)
+
+
+def lod_box(fw, shape0):
+    """Triplanar mapping uv = 0.5·p: 0.5 uv-units per world unit."""
+    return _lod_from_texels(fw * 0.5 * float(max(shape0)))
+
+
+def lod_ring(fw, r1_sq, r2_sq, shape0):
+    """Annulus mapping: radial W·2ρm/(r2²−r1²), angular H/(π·ρm) at the mid
+    radius ρm (texture.py:900-910)."""
+    H, W = (float(v) for v in shape0)
+    rm = torch.sqrt(torch.clamp(0.5 * (r1_sq + r2_sq), min=1e-12))
+    tpw = torch.maximum(W * 2.0 * rm / torch.clamp(r2_sq - r1_sq, min=1e-12), H / (_PI * rm))
+    return _lod_from_texels(fw * tpw)
+
+
+def box_face_uv(pt, normal, box_pos, box_quat):
+    """(uv, weight) of the dominant triplanar face (texture.py:944-964).  The
+    reference rotates box.pos by the quat, not pos-relative — kept."""
+    pos = quat.rotate(box_quat, box_pos)
+    p = quat.rotate(box_quat, pt)
+    n = quat.rotate(box_quat, normal)
+    rel = p - pos
+    ax, ay, az = n[..., 0].abs(), n[..., 1].abs(), n[..., 2].abs()
+    dom_x = (ax >= ay) & (ax >= az)
+    dom_y = ~dom_x & (ay >= az)
+    u = torch.where(dom_x, rel[..., 2], torch.where(dom_y, rel[..., 2], rel[..., 0]))
+    v = torch.where(dom_x, rel[..., 1], torch.where(dom_y, rel[..., 0], rel[..., 1]))
+    uv = 0.5 * torch.stack([u, v], dim=-1) - 0.5
+    w = torch.where(dom_x, ax, torch.where(dom_y, ay, az))
+    return uv, w
+
+
 def _bilinear(table, base, H, W, uv, clamp):
     """GL bilinear fetch from a flat [T, C] texel table: per ray, an H×W
     image starting at row ``base``.  REPEAT wraps the taps; clamp-to-edge
@@ -172,8 +235,8 @@ def _bilinear(table, base, H, W, uv, clamp):
         cv0, cv1 = torch.remainder(v0, H), torch.remainder(v0 + 1, H)
     r0 = base + cv0 * W
     r1 = base + cv1 * W
-    c00, c01 = table[r0 + cu0], table[r0 + cu1]
-    c10, c11 = table[r1 + cu0], table[r1 + cu1]
+    c00, c01 = take(table, r0 + cu0), take(table, r0 + cu1)
+    c10, c11 = take(table, r1 + cu0), take(table, r1 + cu1)
     top = c00 * (1.0 - fu) + c01 * fu
     bot = c10 * (1.0 - fu) + c11 * fu
     return top * (1.0 - fv) + bot * fv

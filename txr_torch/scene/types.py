@@ -162,3 +162,35 @@ class Scene(_Tensors):
     @property
     def device(self):
         return self.camera.pos.device
+
+
+def flatten_with_paths(tree, prefix=""):
+    """{dotted path: leaf} of a dataclass tree, e.g. "spheres.mat.color"
+    (txr/diff/optimize.py:72-81).  Non-tensor fields (reflect_depth) are
+    left out."""
+    out = {}
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(flatten_with_paths(v, f"{prefix}{f.name}."))
+        elif isinstance(v, torch.Tensor):
+            out[f"{prefix}{f.name}"] = v
+    return out
+
+
+def unflatten_like(template, flat, prefix=""):
+    """``template`` with each leaf whose dotted path is in ``flat`` replaced."""
+    kw = {}
+    for f in dataclasses.fields(template):
+        v = getattr(template, f.name)
+        path = f"{prefix}{f.name}"
+        if dataclasses.is_dataclass(v):
+            kw[f.name] = unflatten_like(v, flat, path + ".")
+        elif path in flat:
+            kw[f.name] = flat[path]
+    return dataclasses.replace(template, **kw)
+
+
+def float_leaves(tree):
+    """The floating-point leaves of ``flatten_with_paths``."""
+    return {k: v for k, v in flatten_with_paths(tree).items() if v.is_floating_point()}
