@@ -10,16 +10,23 @@ Phases, one line each:
   1. build     compile the step-probe, nearest-hit and shadow-sweep kernels
                from the sources in the checkout, one nvcc each, all at once
   2. probe     probe kernel vs its plain PyTorch twin on the card: the demo's
-               1080p primary rays plus 8192 random rays, both probe variants
+               1080p primary rays plus 8192 random rays, both probe variants;
+               then the state at step 1 of the 1080p frame with its alive
+               mask; every lane, fills included
   3. sweeps    nearest-hit kernel vs twin on the same rays; shadow-sweep
                kernel vs twin on the shadow rays of the 1080p primary hits
-               toward both lights plus 8192 random rays
+               toward both lights plus 8192 random rays, on every ray and
+               with the need mask of step 0's act lanes
   4. gate      96×54 demo render on the probe route vs the f64 oracle image
                (txr/ref/gate_oracle.npz), golden criterion
   5. gate-off  the same render on the eager route (fused="off"), through the
                nearest-hit and shadow-sweep kernels
   6. forward   the 1920×1080 demo frame: finite, probe launches counted from
-               zero around one frame, frame time by CUDA events
+               zero around one frame, frame time by CUDA events; then for
+               each bounce step its alive lanes, alive-and-hit lanes, rays
+               crossing the torus's bounding sphere, the probe's time on the
+               step's state (CUDA events through the wrapper, and the kernel's
+               device time) and its two bounds, and the probe's sum per frame
   7. grad      demo scene at 48×27, loss mean(img²) over the interior
                pixels: card vs CPU gradients leaf by leaf on the eager
                route, and the probe route's gradients vs the eager route's
@@ -32,10 +39,16 @@ Phases, one line each:
                (its peak memory)
   9. optimize  optimize_scene, 5 Adam steps at 1080p on the camera and the
                spheres from a perturbed demo scene toward the demo frame
-Then each kernel alone, one full-width launch on tables packed once, vs its
-twin and its bound; a JSON line of per-kernel numbers, the card's name and
-power limit, and the last line {"ok": true, "device": {...}}.  Any failure
-exits non-zero and prints no result line.
+Then each kernel alone, one full-width launch on tables packed once, timed
+through its wrapper by CUDA events (``ms``, as earlier records) and by its
+device time in a torch.profiler trace (``device_ms``, the kernel alone), vs
+its twin and two bounds: the work these inputs need (live lanes, the torus
+only on rays crossing its sphere, a shadow ray up to its first occluder)
+and the full work of every lane.  Every line those bounds counted also goes
+through the uncut torus solve, which must hit no line the cull rejects.
+Last, a JSON line of per-kernel numbers, the card's name and power limit,
+and the line {"ok": true, "device": {...}}.  Any failure exits non-zero and
+prints no result line.
 """
 
 from __future__ import annotations
@@ -92,6 +105,11 @@ ACCEPT_OPS = 4        # running (tmin, slot) update per slot
 OCCLUDE_OPS = 2       # t < dist and the OR into the any-hit bit
 RING_UV_OPS = 8       # shadow-ray ring (u, v)
 LANE_OPS = 300        # hit info, texture request, Fresnel, Phong terms
+# the torus's bounding-sphere cull (txr_common.cuh: torus_culled): the
+# local-frame rotations of origin and direction, then three dot products,
+# the inflated radius and the compare; a culled line stops there
+TORUS_ROT_OPS = 84
+TORUS_CULL_OPS = 29
 
 
 def sweep_ops_per_ray(c):
@@ -118,6 +136,113 @@ def bound(flops, nbytes):
     """(least ms on the card, "operations" or "bytes")."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# The work these inputs need, per ray, as the redesigned kernels do it: the
+# torus solve only on lines that cross its inflated bounding sphere, a
+# shadow ray's occluders in the kernel's order up to the first that hits.
+# Computed with the twins' primitive tests, on the card.
+
+# every line torus_ops sees is also run through the uncut Ferrari solve: a
+# culled line that the solve hits would change a pixel
+CULL = dict(lines=0, culled=0, culled_hits=0)
+
+
+def torus_ops(sec, o3, d3):
+    """[(ops [N], crosses [N] bool)] of each torus test on rays o3, d3."""
+    import torch
+
+    from txr_torch.kernels import primitives as prim
+
+    TO = sec["toruses"]
+    out = []
+    for i in range(TO.shape[0]):
+        lo, ld = prim._torus_local(TO[:, 0:3], TO[:, 3:7], i, o3, d3)
+        cross = ~prim._torus_culled(lo, ld, TO[i, 7], TO[i, 8])
+        _, hit = prim._torus_solve(lo, ld, TO[i, 7], TO[i, 8])
+        CULL["lines"] += cross.numel()
+        CULL["culled"] += int((~cross).sum())
+        CULL["culled_hits"] += int((hit & ~cross).sum())
+        out.append((torch.where(cross, float(TEST_OPS["toruses"] + TORUS_CULL_OPS),
+                                float(TORUS_ROT_OPS + TORUS_CULL_OPS)), cross))
+    return out
+
+
+def sweep_needed_ops(cnt, sec, o3, d3):
+    """[N] operations of the nearest-hit sweep of each ray."""
+    ops = sum(cnt[k] * (TEST_OPS[k] + ACCEPT_OPS) for k in TEST_OPS if k != "toruses")
+    for t_ops, _ in torus_ops(sec, o3, d3):
+        ops = ops + t_ops + ACCEPT_OPS
+    return ops + 0.0 * o3[0]
+
+
+def shadow_needed_ops(cnt, sec, o3, d3, dist, one_side=True):
+    """[N] operations of each shadow ray: occluders up to the first that
+    hits, in the kernel's order, then every ring's (hit, u, v)."""
+    import torch
+
+    from txr_torch.kernels.scene_table import occluder_tests
+
+    kinds = (["spheres"] * cnt["spheres"] + ([] if one_side else ["planes"] * cnt["planes"])
+             + ["boxes"] * cnt["boxes"] + ["surfaces"] * cnt["surfaces"]
+             + ["toruses"] * cnt["toruses"])
+    tor = iter(torus_ops(sec, o3, d3))
+    ops = torch.zeros_like(o3[0])
+    done = torch.zeros(o3[0].shape, dtype=torch.bool, device=o3[0].device)
+    for kind, (t, h) in zip(kinds, occluder_tests(cnt, sec, o3, d3, one_side)):
+        cost = next(tor)[0] if kind == "toruses" else float(TEST_OPS[kind])
+        ops = ops + torch.where(done, 0.0, cost + OCCLUDE_OPS)
+        done = done | (h & (t < dist))
+    return ops + cnt["rings"] * (TEST_OPS["rings"] + OCCLUDE_OPS + RING_UV_OPS)
+
+
+def toward_lights(scene, pt):
+    """Shadow rays from points pt [M, 3] toward every light, point lights
+    first, as calc_shade builds them → (origins, directions [M·L, 3],
+    distances [M·L])."""
+    import torch
+
+    from txr_torch.geometry.intersect import safe_normalize
+    from txr_torch.render.intersect import MAX_DIST
+
+    d = scene.lights_point.pos - pt[:, None, :]
+    n_ld = scene.counts["lights_direct"]
+    dirs = torch.cat([d, (-scene.lights_direct.direction).expand((pt.shape[0], n_ld, 3))], 1)
+    dist = torch.cat([torch.sqrt((d * d).sum(-1) + 1e-30),
+                      torch.full((pt.shape[0], n_ld), MAX_DIST, device=pt.device)], 1)
+    return (pt[:, None, :].expand(dirs.shape).reshape(-1, 3).contiguous(),
+            safe_normalize(dirs).reshape(-1, 3).contiguous(), dist.reshape(-1).contiguous())
+
+
+def probe_work(scene, buf, hdr, ro, rd, alive, f, i):
+    """(needed operations, bytes, crossing rays) of one probe launch on the
+    state ro, rd with lane mask ``alive`` (None: every lane, and no mask
+    read), from its output (f, i): live lanes' sweeps, and the per-light
+    shadow probes of live hits that are not light bulbs; every lane's rows
+    are written, fills included (the table's bytes not counted)."""
+    import torch
+
+    from txr_torch.kernels.scene_table import SLOT_ORDER, counts_of, sections
+    from txr_torch.kernels.step_probe import n_rows
+
+    cnt, sec = sections(buf, hdr)
+    lanes = (torch.arange(ro.shape[0], device=ro.device) if alive is None
+             else torch.nonzero(alive).squeeze(-1))
+    o, d = ro[lanes], rd[lanes]
+    o3, d3 = o.unbind(-1), d.unbind(-1)
+    crossing = sum(c for _, c in torus_ops(sec, o3, d3)) if cnt["toruses"] else 0 * lanes
+    ops = float((sweep_needed_ops(cnt, sec, o3, d3) + LANE_OPS).sum())
+    t = f[0, lanes]
+    shaded = (t < 1e30) & (i[0, lanes] < sum(cnt[k] for k in SLOT_ORDER[:-1]))
+    L = cnt["lights_point"] + cnt["lights_direct"]
+    if L and bool(shaded.any()):
+        t, o, d, n = t[shaded], o[shaded], d[shaded], f[1:4, lanes][:, shaded].T
+        so = o + d * t[:, None] + n * ((9e-3 * t + 35.0) / 35e3)[:, None]
+        sro, srd, sdist = toward_lights(scene, so)
+        ops += float(shadow_needed_ops(cnt, sec, sro.unbind(-1), srd.unbind(-1), sdist).sum())
+    mask_bytes = 0 if alive is None else 1
+    nbytes = ro.shape[0] * (mask_bytes + 4 * n_rows(counts_of(hdr)) + 12) + lanes.numel() * 24
+    return ops, nbytes, int((crossing > 0).sum())
 
 
 def log(msg):
@@ -149,6 +274,13 @@ def compare_probe(fk, ik, fr, ir, counts):
     for l in range(L):
         base = 23 + l * (3 + 3 * nr)
         binary |= {base + 2} | {base + 3 + 3 * j for j in range(nr)}
+    # every lane, fills included: t both fills or within T_REL, 0/1 rows and
+    # ints equal, the other rows within ROW_ABS + ROW_REL |y|
+    lane = (ik == ir).all(0) & ((hk == hr) & (~hk | ((fk[0] - fr[0]).abs() <= T_REL * fr[0].abs())))
+    for r in range(1, n_rows(counts)):
+        x, y = fk[r], fr[r]
+        lane &= (x == y) if r in binary else ((x - y).abs() <= ROW_ABS + ROW_REL * y.abs())
+    stats["lanes_agree"] = float(lane.float().mean())
     worst_row, worst_share, max_abs = None, 1.0, 0.0
     for r in range(1, n_rows(counts)):
         x, y = fk[r, a], fr[r, a]
@@ -165,7 +297,7 @@ def compare_probe(fk, ik, fr, ir, counts):
             worst_row, worst_share = f"i{r}", share
     stats.update(worst_row=worst_row, worst_row_share=worst_share, max_abs_err=max_abs)
     ok = (stats["hit_agree"] > AGREE and stats["slot_agree"] > AGREE
-          and stats["t_ok"] >= AGREE and worst_share >= AGREE)
+          and stats["t_ok"] >= AGREE and worst_share >= AGREE and stats["lanes_agree"] > AGREE)
     return ok, stats
 
 
@@ -186,7 +318,7 @@ def compare_nearest(tk, sk, tr, sr):
 def compare_shadow(k, r):
     """shadow_sweep kernel (solid, ring_hit, ring_uv) vs twin → (ok, stats)."""
     stats = dict(solid_agree=float((k[0] == r[0]).float().mean()))
-    ok = stats["solid_agree"] > AGREE
+    lane = k[0] == r[0]
     if k[1] is not None:
         both = k[1] & r[1]
         err = (k[2] - r[2]).abs().amax(-1)[both]
@@ -194,9 +326,13 @@ def compare_shadow(k, r):
                      ring_hits=int(both.sum()),
                      uv_ok=float((err <= UV_ABS).float().mean()) if err.numel() else 1.0,
                      max_abs_err=float(err.max()) if err.numel() else 0.0)
-        ok = ok and stats["ring_hit_agree"] > AGREE and stats["uv_ok"] >= AGREE
+        lane &= (k[1] == r[1]).all(-1) & ((k[2] - r[2]).abs() <= UV_ABS).all(-1).all(-1)
     else:
         stats["max_abs_err"] = 0.0
+    stats["lanes_agree"] = float(lane.float().mean())
+    ok = stats["solid_agree"] > AGREE and stats["lanes_agree"] > AGREE
+    if k[1] is not None:
+        ok = ok and stats["ring_hit_agree"] > AGREE and stats["uv_ok"] >= AGREE
     return ok, stats
 
 
@@ -214,28 +350,75 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def shadow_rays(scene, textures, ro, rd, table, pix):
-    """The shadow rays of the primary hits toward every light, [R·L] —
-    what calc_shade hands the shadow sweep on the first bounce."""
+def device_ms(fn, kernel, reps):
+    """Mean device time of the CUDA kernel named ``kernel`` per call of
+    ``fn``, from a torch.profiler trace of ``reps`` calls: the kernel alone,
+    without the wrapper's host work or the other small ops it launches."""
     import torch
 
-    from txr_torch.geometry.intersect import safe_normalize
-    from txr_torch.render.intersect import MAX_DIST, nearest_hit
+    from txr_torch.apps.profile_frame import device_events
+
+    fn()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        times = [ms for name, ms in device_events(path) if kernel in name]
+    # the tracer may drop a few device records; the mean needs only some
+    if len(times) < reps // 2:
+        fail(f"the trace holds {len(times)} launches of {kernel}, fewer than half of the "
+             f"{reps} made")
+    return sum(times) / len(times)
+
+
+def shadow_rays(scene, textures, ro, rd, table, pix):
+    """The shadow rays of the primary hits toward every light, [R·L] —
+    what calc_shade hands the shadow sweep on the first bounce — and its
+    ``need`` mask: the step's act lanes (hits that are not a light bulb),
+    repeated per light."""
+    import torch
+
+    from txr_torch.render.intersect import nearest_hit
     from txr_torch.render.trace import hit_info
+    from txr_torch.scene.types import TYPE_POINT_LIGHT
 
     with torch.no_grad():
         t, ty, idx = nearest_hit(scene, ro, rd, True, table)
         hi = hit_info(scene, textures, ro, rd, t, ty, idx, pix)
         n = hi["normal"]
         n = torch.where(((rd * n).sum(-1) < 0)[..., None], n, -n)
-        pt = hi["pt"] + n * hi["bias"][..., None]
-        d = scene.lights_point.pos - pt[:, None, :]
-        dirs = torch.cat([d, (-scene.lights_direct.direction).expand(
-            (pt.shape[0], scene.counts["lights_direct"], 3))], 1)
-        dist = torch.cat([torch.sqrt((d * d).sum(-1) + 1e-30), torch.full(
-            (pt.shape[0], scene.counts["lights_direct"]), MAX_DIST, device=pt.device)], 1)
-        so = pt[:, None, :].expand(dirs.shape).reshape(-1, 3).contiguous()
-        return so, safe_normalize(dirs).reshape(-1, 3).contiguous(), dist.reshape(-1).contiguous()
+        so, sd, dist = toward_lights(scene, hi["pt"] + n * hi["bias"][..., None])
+        act = torch.isfinite(t) & (ty != TYPE_POINT_LIGHT)
+        L = dist.shape[0] // t.shape[0]
+        return so, sd, dist, act[:, None].expand(-1, L).reshape(-1).contiguous()
+
+
+def frame_states(scene, textures, cfg, device):
+    """The per-ray state at the start of each bounce step of one frame on
+    the probe route, recorded from render()'s own bounce loop."""
+    import torch
+
+    from txr_torch.render import trace as tr
+    from txr_torch.render.render import render
+
+    states, step = [], tr._fused_step
+
+    def record(scene, textures, cfg, st, table):
+        states.append(st)
+        return step(scene, textures, cfg, st, table)
+
+    tr._fused_step = record
+    try:
+        with torch.no_grad():
+            render(scene, textures, cfg, device=device)
+    finally:
+        tr._fused_step = step
+    return states
 
 
 def main():
@@ -251,7 +434,7 @@ def main():
         from txr_torch.kernels import nearest_hit as nh
         from txr_torch.kernels import shadow_sweep as ss
         from txr_torch.kernels import step_probe as sp
-        from txr_torch.kernels.scene_table import pack_scene
+        from txr_torch.kernels.scene_table import pack_scene, sections
         from txr_torch.render.intersect import nearest_hit
         from txr_torch.render.raygen import primary_rays
         from txr_torch.render.render import render
@@ -316,6 +499,24 @@ def main():
         if not ok:
             fail("step_probe kernel disagrees with its twin")
         del fk, ik, fr, ir
+    # with a real mask: the state at step 1 of the 1080p frame, its alive lanes
+    cfg = RenderConfig(width=W, height=H, iterations=5,
+                       extra_refraction_steps=auto_refraction_steps(scene))
+    states = frame_states(scene, textures, cfg, dev)
+    s1 = states[1]
+    for flipped in (True, False):
+        hdr_f = sp.set_flags(table[1], shade_flipped=flipped)
+        fk, ik = sp.launch(table[0], hdr_f, s1["ro"], s1["rd"], pix, s1["alive"])
+        torch.cuda.synchronize()
+        fr, ir = sp.step_probe_ref(table[0], hdr_f, s1["ro"], s1["rd"], pix, s1["alive"])
+        ok, st = compare_probe(fk, ik, fr, ir, ncount)
+        err["step_probe"] = max(err["step_probe"], st["max_abs_err"])
+        log(f"phase probe (step 1 of the 1080p frame, alive mask: {int(s1['alive'].sum())} of "
+            f"{s1['alive'].numel()} lanes, shade_flipped={flipped}): " + json.dumps(st)
+            + (" PASS" if ok else " FAIL"))
+        if not ok:
+            fail("step_probe kernel with a lane mask disagrees with its twin")
+        del fk, ik, fr, ir
 
     # 3. sweep kernels vs twins ------------------------------------------------
     buf, hdr = table
@@ -329,20 +530,27 @@ def main():
     if not ok:
         fail("nearest_hit kernel disagrees with its twin")
     del tk, sk, tr, sr
-    so, sd, sdist = shadow_rays(scene, textures, ro, rd, table, pix)
+    so, sd, sdist, sneed = shadow_rays(scene, textures, ro, rd, table, pix)
     sdist2 = torch.from_numpy(rng.uniform(0.5, 3e4, N_RANDOM).astype(np.float32)).to(dev)
     so_all = torch.cat([so, ro2]).contiguous()
     sd_all = torch.cat([sd, rd2]).contiguous()
     sdist_all = torch.cat([sdist, sdist2]).contiguous()
-    k = ss.launch(buf, hdr, so_all, sd_all, sdist_all)
-    torch.cuda.synchronize()
-    ok, st = compare_shadow(k, ss.shadow_sweep_ref(buf, hdr, so_all, sd_all, sdist_all))
-    err["shadow_sweep"] = st["max_abs_err"]
-    log(f"phase sweeps shadow_sweep ({so_all.shape[0]} rays: {L} lights x {ro.shape[0]} "
-        f"primary rays + {N_RANDOM} random): {json.dumps(st)}" + (" PASS" if ok else " FAIL"))
-    if not ok:
-        fail("shadow_sweep kernel disagrees with its twin")
-    del k, so_all, sd_all, sdist_all
+    # need: step 0's act lanes per light, then a random 30 % of the random rays
+    need_all = torch.cat([sneed, torch.from_numpy(rng.random(N_RANDOM) < 0.3).to(dev)])
+    err["shadow_sweep"] = 0.0
+    for need in (None, need_all):
+        k = ss.launch(buf, hdr, so_all, sd_all, sdist_all, need)
+        torch.cuda.synchronize()
+        ok, st = compare_shadow(k, ss.shadow_sweep_ref(buf, hdr, so_all, sd_all, sdist_all, need))
+        err["shadow_sweep"] = max(err["shadow_sweep"], st["max_abs_err"])
+        what = "every ray" if need is None else f"need mask: {int(need.sum())} rays"
+        log(f"phase sweeps shadow_sweep ({so_all.shape[0]} rays: {L} lights x {ro.shape[0]} "
+            f"primary rays + {N_RANDOM} random; {what}): {json.dumps(st)}"
+            + (" PASS" if ok else " FAIL"))
+        if not ok:
+            fail("shadow_sweep kernel disagrees with its twin")
+        del k
+    del so_all, sd_all, sdist_all, need_all
 
     # 4-5. gate, both routes -----------------------------------------------------
     gscene, _ = build_scene(GATE_W, GATE_H)
@@ -362,8 +570,6 @@ def main():
             fail(f"{name} render does not match the oracle or did not launch {kernels}")
 
     # 6. 1080p forward -----------------------------------------------------------
-    cfg = RenderConfig(width=W, height=H, iterations=5,
-                       extra_refraction_steps=auto_refraction_steps(scene))
     reset_counts()
     img = render(scene, textures, cfg, device=dev)
     torch.cuda.synchronize()
@@ -378,6 +584,29 @@ def main():
         f"rays/s, launches {launches}/frame, peak {peak_gb:.2f} GB")
     target = img.detach()
     del img
+    # the probe on each bounce step's state: lanes, work, time, bounds
+    probe_frame_ms = probe_frame_device_ms = 0.0
+    for k, st in enumerate(states):
+        args = (buf, hdr, st["ro"], st["rd"], pix, st["alive"])
+        fk, ik = sp.launch(*args)
+        ms = cuda_ms(lambda: sp.launch(*args), KERNEL_REPS)
+        dev_ms = device_ms(lambda: sp.launch(*args), "step_probe_kernel", KERNEL_REPS)
+        probe_frame_ms += ms
+        probe_frame_device_ms += dev_ms
+        ops, nbytes, crossing = probe_work(scene, buf, hdr, st["ro"], st["rd"], st["alive"], fk, ik)
+        need_ms, need_by = bound(ops, nbytes + buf.numel() * 4)
+        full_ms, full_by = bound(probe_ops_per_ray(ncount) * W * H, nbytes + buf.numel() * 4)
+        hits = int((st["alive"] & (fk[0] < 1e30)).sum())
+        log(f"phase forward step {k}: alive {int(st['alive'].sum())}, alive and hit {hits}, "
+            f"crossing the torus sphere {crossing} (of the alive), probe {ms:.4f} ms through "
+            f"its wrapper by CUDA events (kernel device time {dev_ms:.4f} ms), bound "
+            f"{need_ms:.4f} ms by {need_by} for this work ({ops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.0f} MB), {full_ms:.4f} ms by {full_by} at full work")
+        del fk, ik
+    log(f"phase forward: probe {probe_frame_ms:.3f} ms per frame over {len(states)} bounce "
+        f"steps by CUDA events ({probe_frame_device_ms:.3f} ms kernel device time; the glossy "
+        f"passes' launches not included)")
+    del states, s1
 
     # 7. gradients: card vs CPU, probe route vs eager route ----------------------
     def interior(w, h):
@@ -507,21 +736,34 @@ def main():
     if not ok:
         fail("optimize_scene did not lower the loss")
 
-    # each kernel alone, on tables packed once, at the main path's widths ----------
+    # each kernel alone, on tables packed once, at the widths of earlier
+    # records: the 1080p primary rays, in raster order, every lane live (the
+    # probe, the sweep);
+    # their shadow rays toward both lights (the shadow sweep, with the need
+    # mask of step 0's act lanes as the eager route passes it, and without)
     n, ns = ro.shape[0], so.shape[0]
-    flops = dict(step_probe=probe_ops_per_ray(ncount) * n,
-                 nearest_hit=sweep_ops_per_ray(ncount) * n,
-                 shadow_sweep=shadow_ops_per_ray(ncount) * ns)
+    cnt, sec = sections(buf, hdr)
     tab = buf.numel() * 4
-    nbytes = dict(step_probe=n * (24 + 4 * sp.n_rows(ncount) + 12) + tab,
-                  nearest_hit=n * (24 + 8) + tab,
-                  shadow_sweep=ns * (28 + 4 + 12 * ncount["rings"]) + tab)
+    full = dict(step_probe=(probe_ops_per_ray(ncount) * n, n * (24 + 4 * sp.n_rows(ncount) + 12)),
+                nearest_hit=(sweep_ops_per_ray(ncount) * n, n * (24 + 8)),
+                shadow_sweep=(shadow_ops_per_ray(ncount) * ns,
+                              ns * (28 + 4 + 12 * ncount["rings"])))
+    fk, ik = sp.launch(buf, hdr, ro, rd, pix)
+    p_ops, p_bytes, _ = probe_work(scene, buf, hdr, ro, rd, None, fk, ik)
+    del fk, ik
+    o3, d3 = ro.unbind(-1), rd.unbind(-1)
+    lanes = torch.nonzero(sneed).squeeze(-1)
+    s_ops = float(shadow_needed_ops(cnt, sec, so[lanes].unbind(-1), sd[lanes].unbind(-1),
+                                    sdist[lanes]).sum())
+    needed = dict(step_probe=(p_ops, p_bytes),
+                  nearest_hit=(float(sweep_needed_ops(cnt, sec, o3, d3).sum()), n * (24 + 8)),
+                  shadow_sweep=(s_ops, ns * (1 + 4 + 12 * ncount["rings"]) + lanes.numel() * 28))
     runs = dict(step_probe=(lambda: sp.launch(buf, hdr, ro, rd, pix),
                             lambda: sp.step_probe_ref(buf, hdr, ro, rd, pix)),
                 nearest_hit=(lambda: nh.launch(buf, hdr, ro, rd),
                              lambda: nh.nearest_hit_ref(buf, hdr, ro, rd)),
-                shadow_sweep=(lambda: ss.launch(buf, hdr, so, sd, sdist),
-                              lambda: ss.shadow_sweep_ref(buf, hdr, so, sd, sdist)))
+                shadow_sweep=(lambda: ss.launch(buf, hdr, so, sd, sdist, sneed),
+                              lambda: ss.shadow_sweep_ref(buf, hdr, so, sd, sdist, sneed)))
     sources = dict(step_probe="txr/kernels/pallas_step.py:652",
                    nearest_hit="txr/kernels/pallas_intersect.py:375",
                    shadow_sweep="txr/kernels/pallas_intersect.py:489")
@@ -530,19 +772,38 @@ def main():
                          shadow_sweep=train["off"]["launches"]["shadow_sweep"])
     rows = []
     for name, (kernel, twin) in runs.items():
-        kernel()
         ms = cuda_ms(kernel, KERNEL_REPS)
+        extra = dict(device_ms=device_ms(kernel, f"{name}_kernel", KERNEL_REPS))
         twin()
         plain_ms = cuda_ms(twin, 2)
-        bound_ms, bound_by = bound(flops[name], nbytes[name])
+        bound_ms, bound_by = bound(needed[name][0], needed[name][1] + tab)
+        full_ms, full_by = bound(full[name][0], full[name][1] + tab)
         rays = n if name != "shadow_sweep" else ns
-        log(f"kernel {name}: {ms:.3f} ms per launch at {rays} rays (twin {plain_ms:.1f} ms, "
-            f"bound {bound_ms:.3f} ms by {bound_by}: {flops[name] / 1e9:.2f} GFLOP, "
-            f"{nbytes[name] / 1e6:.0f} MB)")
+        if name == "step_probe":
+            extra.update(frame_ms=probe_frame_ms, frame_device_ms=probe_frame_device_ms)
+        elif name == "shadow_sweep":
+            every_ray = lambda: ss.launch(buf, hdr, so, sd, sdist)
+            extra.update(ms_every_ray=cuda_ms(every_ray, KERNEL_REPS),
+                         device_ms_every_ray=device_ms(every_ray, "shadow_sweep_kernel",
+                                                       KERNEL_REPS))
+        log(f"kernel {name}: {ms:.4f} ms per launch at {rays} rays, through its wrapper by "
+            f"CUDA events (twin {plain_ms:.1f} ms), "
+            f"bound {bound_ms:.4f} ms by {bound_by} for the work these inputs need "
+            f"({needed[name][0] / 1e9:.3f} GFLOP, {(needed[name][1] + tab) / 1e6:.0f} MB), "
+            f"{full_ms:.4f} ms by {full_by} at full work ({full[name][0] / 1e9:.2f} GFLOP); "
+            + json.dumps(extra))
         rows.append(dict(name=name, route="cuda", source=f"txr_torch/kernels/csrc/{name}.cu",
                          replaces=sources[name], launches=main_launches[name],
                          max_abs_err=err[name], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None))
+                         bound_by=bound_by, library_ms=None, bound_full_ms=full_ms,
+                         bound_full_by=full_by, **extra))
+
+    log(f"phase torus cull (every line the bounds above counted: the frame's bounce steps, "
+        f"their shading probes' shadow rays, the primary rays and step 0's eager shadow rays): "
+        f"{CULL['lines']} lines, {CULL['culled']} culled, {CULL['culled_hits']} culled lines "
+        f"that the uncut Ferrari solve hits -> {'PASS' if not CULL['culled_hits'] else 'FAIL'}")
+    if CULL["culled_hits"] or not CULL["culled"]:
+        fail("the torus cull rejects a line that the uncut solve hits, or saw no line")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)

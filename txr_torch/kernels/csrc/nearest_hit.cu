@@ -8,11 +8,13 @@
 //
 // What bounds it: arithmetic.  A ray reads 24 B and writes 8 B, but its
 // sweep is some 1.8 thousand FP32 operations on the demo scene, half of
-// them the torus's Ferrari solve.  The table is staged in shared memory
-// once per block, so every primitive parameter is a broadcast read; counts
-// are runtime loop bounds.  Simple first: no topology specialisation, no
-// compaction of dead rays.  Built with -fmad=false so it rounds as its twin
-// (kernels/nearest_hit.py:nearest_hit_ref) does.
+// them the torus's Ferrari solve, which runs only on lines that cross the
+// torus's inflated bounding sphere (txr_common.cuh: torus_culled).  The
+// table is staged in shared memory once per block, so every primitive
+// parameter is a broadcast read; counts are runtime loop bounds.  No
+// topology specialisation, no compaction of dead rays yet.  Built with
+// -fmad=false so it rounds as its twin (kernels/nearest_hit.py:
+// nearest_hit_ref) does.
 
 #include <cuda_runtime.h>
 

@@ -234,13 +234,35 @@ __device__ __forceinline__ void ferrari_roots(const Quartic& k, float* re, float
   for (int j = 0; j < 4; ++j) re[j] -= off;
 }
 
+// The torus's bounding-sphere cull (primitives.py:_torus_culled): true when
+// the line lo + t ld misses the sphere of radius^2
+// ((R + r) TORUS_CULL_RHO)^2 + TORUS_CULL_K |lo|^4 / (R r), where the Ferrari
+// solve finds no root either.  The second term covers the float32 solve's
+// false hits on near-tangent rays from afar (their margin grows as |lo|^4);
+// a line and not a ray, since the solve also accepts roots of some rays
+// leaving the sphere.  Rays of a warp are neighbouring pixels, so the branch
+// is nearly warp-uniform; some 3-6 % of the demo's rays pass it.
+constexpr float TORUS_CULL_RHO = 1.001f, TORUS_CULL_K = 2.0e-6f;
+
+__device__ __forceinline__ bool torus_culled(f3 lo, f3 ld, float R, float r) {
+  float c0 = lo.x * lo.x + lo.y * lo.y + lo.z * lo.z;
+  float hb = lo.x * ld.x + lo.y * ld.y + lo.z * ld.z;
+  float A = ld.x * ld.x + ld.y * ld.y + ld.z * ld.z;
+  float rb = (R + r) * TORUS_CULL_RHO;
+  float rho2 = rb * rb + TORUS_CULL_K * (c0 * c0) / fmaxf(fabsf(R * r), 1e-12f);
+  return hb * hb < A * (c0 - rho2);
+}
+
 // Ferrari closed form with the reference's acceptance (rt.frag:478-486);
-// the accepted root is polished on the factored quartic
+// the accepted root is polished on the factored quartic.  Culled lines
+// return before the solve.
 __device__ __forceinline__ bool torus_test(const float* T, f3 o, f3 d, float& t) {
   const float* q = T + 3;
   f3 lo = rotq(q, sub(o, T));
   f3 ld = rotq(q, d);
   const float R = T[7], r = T[8];
+  t = 0.0f;
+  if (torus_culled(lo, ld, R, r)) return false;
   float A = ld.x * ld.x + ld.y * ld.y + ld.z * ld.z;
   float Bq = 2.0f * (lo.x * ld.x + lo.y * ld.y + lo.z * ld.z);
   float R2 = R * R;
@@ -343,23 +365,27 @@ __device__ __forceinline__ void nearest_sweep(const Meta& m, const float* sm, f3
 
 // inShadow's solid part (rt.frag:630-658): any occluder closer than dist.
 // Spheres are tested solid, planes occlude only when two-sided; rings are
-// left to the caller, which needs each ring's (hit, u, v).
+// left to the caller, which needs each ring's (hit, u, v).  The bit is an
+// OR, so the ray stops at its first occluder, testing the cheap types
+// first: spheres, two-sided planes, boxes, surfaces, then toruses.
 __device__ __forceinline__ bool occluded(const Meta& m, const float* sm, f3 o, f3 d,
                                          float dist) {
   const bool one_side = m.flags & FLAG_ONE_SIDE;
-  bool solid = false;
   float t;
   for (int k = 0; k < m.n_sp; ++k) {
     const float* S = sm + m.o_sp + RSP * k;
-    solid |= sphere_test(S, S[3], false, o, d, t) && t < dist;
+    if (sphere_test(S, S[3], false, o, d, t) && t < dist) return true;
   }
-  for (int k = 0; k < m.n_su; ++k) solid |= surface_test(sm + m.o_su + RSU * k, o, d, t) && t < dist;
-  for (int k = 0; k < m.n_bx; ++k) solid |= box_test(sm + m.o_bx + RBX * k, o, d, t) && t < dist;
-  for (int k = 0; k < m.n_to; ++k) solid |= torus_test(sm + m.o_to + RTO * k, o, d, t) && t < dist;
   if (!one_side)
     for (int k = 0; k < m.n_pl; ++k)
-      solid |= plane_test(sm + m.o_pl + RPL * k, o, d, one_side, t) && t < dist;
-  return solid;
+      if (plane_test(sm + m.o_pl + RPL * k, o, d, one_side, t) && t < dist) return true;
+  for (int k = 0; k < m.n_bx; ++k)
+    if (box_test(sm + m.o_bx + RBX * k, o, d, t) && t < dist) return true;
+  for (int k = 0; k < m.n_su; ++k)
+    if (surface_test(sm + m.o_su + RSU * k, o, d, t) && t < dist) return true;
+  for (int k = 0; k < m.n_to; ++k)
+    if (torus_test(sm + m.o_to + RTO * k, o, d, t) && t < dist) return true;
+  return false;
 }
 
 // Ring k's shadow-ray hit closer than dist, with its (u, v):
@@ -371,6 +397,33 @@ __device__ __forceinline__ bool ring_shadow(const float* Rg, f3 o, f3 d, float d
   u = h ? (pp - Rg[7]) / (Rg[8] - Rg[7]) : 0.0f;
   v = h ? x / sqrtf(fmaxf(pp, 1e-20f)) : 0.0f;
   return h;
+}
+
+// A barrier over the first nthreads threads of the block (a multiple of 32):
+// after warps have retired, __syncthreads would wait for them.
+__device__ __forceinline__ void sync_first(int nthreads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory");
+}
+
+// In-block stream compaction over the block's first nwarps warps, which
+// all call it: each thread with pred set writes its `item` to list[k], k its
+// rank among the set threads in thread order, and every caller gets the
+// count.  One ballot and popcount per warp, per-warp offsets in shared
+// memory (wcount, one int per warp), two barriers over the callers.
+__device__ __forceinline__ int compact(bool pred, int item, int nwarps, int* list, int* wcount) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, pred);
+  if (lane == 0) wcount[warp] = __popc(ballot);
+  sync_first(nwarps * 32);
+  int off = 0, total = 0;
+  for (int w = 0; w < nwarps; ++w) {
+    const int c = wcount[w];
+    off += w < warp ? c : 0;
+    total += c;
+  }
+  if (pred) list[off + __popc(ballot & ((1u << lane) - 1u))] = item;
+  sync_first(nwarps * 32);
+  return total;
 }
 
 // Raise the dynamic shared-memory limit of a kernel when its table needs it.

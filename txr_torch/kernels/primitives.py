@@ -10,6 +10,7 @@ same arithmetic in the same order.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from txr_torch.geometry.torus import (
@@ -20,6 +21,14 @@ from txr_torch.geometry.torus import (
 
 BIG = 1.0e30
 INF_T = 3.0e38       # stand-in for +inf inside the kernel (f32 finite)
+# the torus's bounding-sphere cull (_torus_culled; txr_common.cuh carries the
+# same float32 constants): the sphere's radius is (R + r)·TORUS_CULL_RHO, and
+# its square grows by TORUS_CULL_K·|lo|⁴/(R·r), a margin over the float32
+# solve's false hits on near-tangent rays from afar.  tests/test_torch_lanes.py
+# holds the cut test to the uncut one on near-tangent rays out to 150 units,
+# chip_smoke.py on every ray of a 1080p frame
+TORUS_CULL_RHO = np.float32(1.001)
+TORUS_CULL_K = np.float32(2.0e-6)
 
 
 def _rot(q, v):
@@ -133,15 +142,45 @@ def _box_test(bpos, bquat, bform, i, ro, rd):
     return tN, (tN <= tF) & (tF >= 0.0)
 
 
+def _torus_local(tpos, tquat, i, ro, rd):
+    """The ray in torus i's local frame: ((ox, oy, oz), (dx, dy, dz))."""
+    q = tuple(tquat[i, j] for j in range(4))
+    return (_rot(q, (ro[0] - tpos[i, 0], ro[1] - tpos[i, 1], ro[2] - tpos[i, 2])),
+            _rot(q, rd))
+
+
+def _torus_culled(lo, ld, R, r):
+    """Lanes whose line misses the torus's inflated bounding sphere, which
+    the Ferrari solve would reject too: |lo + t·ld|² > ρ² for every real t,
+    ρ² = ((R + r)·TORUS_CULL_RHO)² + TORUS_CULL_K·|lo|⁴ / (R·r).  The
+    second term covers the float32 solve's false hits on near-tangent rays
+    from afar, whose error grows as |lo|⁴; a line, not a ray, since the
+    solve also accepts roots of some rays that leave the sphere."""
+    ox, oy, oz = lo
+    dx, dy, dz = ld
+    c0 = ox * ox + oy * oy + oz * oz
+    hb = ox * dx + oy * dy + oz * dz
+    A = dx * dx + dy * dy + dz * dz
+    rb = (R + r) * TORUS_CULL_RHO
+    rho2 = rb * rb + TORUS_CULL_K * (c0 * c0) / max(abs(R * r), np.float32(1e-12))
+    return hb * hb < A * (c0 - rho2)
+
+
 def _torus_test(tpos, tquat, tform, i, ro, rd):
     """Ferrari closed-form quartic with the reference's DK acceptance
     (rt.frag:478-486): |imag| ≤ 1e-3, real ≥ 0, 0 < t < 100.  The accepted
-    root is polished on the factored quartic, not the expanded one."""
-    q = tuple(tquat[i, j] for j in range(4))
-    ox, oy, oz = _rot(q, (ro[0] - tpos[i, 0], ro[1] - tpos[i, 1], ro[2] - tpos[i, 2]))
-    dx, dy, dz = _rot(q, rd)
-    R = tform[i, 0]
-    r = tform[i, 1]
+    root is polished on the factored quartic, not the expanded one.  Lanes
+    that ``_torus_culled`` rejects report no hit (the kernel skips their
+    solve; here it runs on every lane and is masked)."""
+    lo, ld = _torus_local(tpos, tquat, i, ro, rd)
+    t, hit = _torus_solve(lo, ld, tform[i, 0], tform[i, 1])
+    return t, hit & ~_torus_culled(lo, ld, tform[i, 0], tform[i, 1])
+
+
+def _torus_solve(lo, ld, R, r):
+    """The uncut Ferrari test on a local-frame ray → (t, hit)."""
+    ox, oy, oz = lo
+    dx, dy, dz = ld
     A = dx * dx + dy * dy + dz * dz
     Bq = 2.0 * (ox * dx + oy * dy + oz * dz)
     R2 = R * R

@@ -163,6 +163,18 @@ def check_rays(name, device, *rays):
             raise ValueError(f"{name}: ray tensors must be contiguous")
 
 
+def check_mask(name, device, mask, n):
+    """A lane mask as the kernels read it: None, or a contiguous bool or
+    uint8 [n] tensor on ``device`` → None or its uint8 view."""
+    if mask is None:
+        return None
+    if (mask.device != device or mask.dtype not in (torch.bool, torch.uint8)
+            or tuple(mask.shape) != (n,) or not mask.is_contiguous()):
+        raise ValueError(f"{name}: a lane mask must be a contiguous bool or uint8 [{n}] tensor "
+                         f"on {device}, got {tuple(mask.shape)} {mask.dtype} on {mask.device}")
+    return mask.view(torch.uint8)
+
+
 def check_table(name, buf, hdr, device):
     if (buf.device != device or buf.dtype != torch.float32 or not buf.is_contiguous()
             or len(hdr) != HDR_LEN or buf.numel() != hdr[-1]):
@@ -204,25 +216,35 @@ def sweep_ref(cnt, sec, o3, d3, one_side):
     return tmin, slot
 
 
-def occlusion_ref(cnt, sec, o3, d3, dist, one_side):
-    """Any hit closer than ``dist`` [N]: spheres (tested solid), surfaces,
-    boxes, toruses, and planes only when two-sided → (solid [N] f32 0/1,
-    [hit, u, v] [N] f32 for each ring, zeros where the ring is not hit)."""
-    PL, SP, SU, BX, TO, RI = (sec[k] for k in SLOT_ORDER[:-1])
-    solid = torch.zeros(o3[0].shape, dtype=torch.bool, device=o3[0].device)
-    occl = lambda t, h: h & (t < dist)
+def occluder_tests(cnt, sec, o3, d3, one_side):
+    """(t, hit) of every solid occluder of a shadow ray, in the kernel's
+    order (cheapest first): spheres (tested solid), planes only when
+    two-sided, boxes, surfaces, toruses."""
+    PL, SP, SU, BX, TO = (sec[k] for k in SLOT_ORDER[:5])
     for i in range(cnt["spheres"]):
-        solid |= occl(*_sphere_test(SP[i, 0], SP[i, 1], SP[i, 2], SP[i, 3], None, o3, d3))
-    for i in range(cnt["surfaces"]):
-        solid |= occl(*_surface_test(SU[:, 0:3], SU[:, 3:7], SU[:, 7:13], SU[:, 13:16],
-                                     SU[:, 16:19], i, o3, d3))
-    for i in range(cnt["boxes"]):
-        solid |= occl(*_box_test(BX[:, 0:3], BX[:, 3:7], BX[:, 7:10], i, o3, d3))
-    for i in range(cnt["toruses"]):
-        solid |= occl(*_torus_test(TO[:, 0:3], TO[:, 3:7], TO[:, 7:9], i, o3, d3))
+        yield _sphere_test(SP[i, 0], SP[i, 1], SP[i, 2], SP[i, 3], None, o3, d3)
     if not one_side:
         for i in range(cnt["planes"]):
-            solid |= occl(*_plane_test(PL[:, 0:3], PL[:, 3:6], i, o3, d3, one_side))
+            yield _plane_test(PL[:, 0:3], PL[:, 3:6], i, o3, d3, one_side)
+    for i in range(cnt["boxes"]):
+        yield _box_test(BX[:, 0:3], BX[:, 3:7], BX[:, 7:10], i, o3, d3)
+    for i in range(cnt["surfaces"]):
+        yield _surface_test(SU[:, 0:3], SU[:, 3:7], SU[:, 7:13], SU[:, 13:16], SU[:, 16:19],
+                            i, o3, d3)
+    for i in range(cnt["toruses"]):
+        yield _torus_test(TO[:, 0:3], TO[:, 3:7], TO[:, 7:9], i, o3, d3)
+
+
+def occlusion_ref(cnt, sec, o3, d3, dist, one_side):
+    """Any hit closer than ``dist`` [N] over ``occluder_tests`` → (solid [N]
+    f32 0/1, [hit, u, v] [N] f32 for each ring, zeros where the ring is not
+    hit).  The kernel stops a ray at its first occluder; the bit is an OR,
+    so this twin ORs them all."""
+    RI = sec["rings"]
+    solid = torch.zeros(o3[0].shape, dtype=torch.bool, device=o3[0].device)
+    occl = lambda t, h: h & (t < dist)
+    for t, h in occluder_tests(cnt, sec, o3, d3, one_side):
+        solid |= occl(t, h)
     rings = []
     for i in range(cnt["rings"]):
         t, h, x, _, pp = _ring_test(RI[:, 0:3], RI[:, 3:7], RI[:, 7], RI[:, 8], i, o3, d3)

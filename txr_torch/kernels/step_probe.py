@@ -11,6 +11,9 @@ weight, the specular term, the solid any-hit bit and each ring's (hit, u, v).
 
 Output: ``f`` [NF, N] f32 with NF = 23 + L·(3 + 3·nr) rows in the order of
 ``pallas_step.py:558-571``, and ``i`` [3, N] int32 (slot, kind, req_k).
+Lanes that are not ``alive``, lanes that miss, and the light rows of a
+light-bulb hit hold fills (t = INF_T, every other row 0), which the kernel
+writes without sweeping or shading them.
 
 ``step_probe`` launches the kernel on CUDA tensors (``launch``) and runs
 the twin ``step_probe_ref`` on CPU tensors.  Both read the packed scene
@@ -37,6 +40,7 @@ from txr_torch.kernels.scene_table import (  # noqa: F401  (pack_scene is public
     MAX_DIST,
     SLOT_ORDER,
     _TYPES,
+    check_mask,
     check_rays,
     check_table,
     counts_of,
@@ -71,9 +75,11 @@ def _pow5(x):
     return x2 * x2 * x
 
 
-def step_probe_ref(buf, hdr, ro, rd, pix_angle=0.0):
+def step_probe_ref(buf, hdr, ro, rd, pix_angle=0.0, alive=None):
     """Plain PyTorch twin of the kernel over [N] tensors, Python loops over
-    the primitive counts, on the tables of ``pack_scene``; see ``step_probe``."""
+    the primitive counts, on the tables of ``pack_scene``; see ``step_probe``.
+    Every lane is computed; the kernel's fills are then applied with
+    ``torch.where``."""
     cnt, sec = sections(buf, hdr)
     flags = hdr[9]
     one_side = bool(flags & FLAG_ONE_SIDE)
@@ -320,22 +326,30 @@ def step_probe_ref(buf, hdr, ro, rd, pix_angle=0.0):
         shade_probe(zero + (-dxl * inv), zero + (-dyl * inv), zero + (-dzl * inv),
                     torch.full_like(rox, MAX_DIST), LD[i, 3])
 
-    rows = [tmin, nx, ny, nz, torch.where(outside, 1.0, 0.0), rm,
-            req_a, req_b, req_c, lodv, tex_w] + mat + light_rows
+    # ---- the kernel's fills: off and miss lanes, and a light bulb's shading
+    live = hit if alive is None else hit & alive.to(torch.bool)
+    shaded = live & (slot < bases["lights_point"])
+    base_rows = [torch.where(live, tmin, INF_T)] + [
+        torch.where(live, r, 0.0) for r in [nx, ny, nz, torch.where(outside, 1.0, 0.0), rm,
+                                             req_a, req_b, req_c, lodv, tex_w] + mat]
+    rows = base_rows + [torch.where(shaded, r, 0.0) for r in light_rows]
     f = torch.stack([r.to(f32) for r in rows])
-    i = torch.stack([slot, kind, req_k]).to(torch.int32)
+    i = torch.where(live, torch.stack([slot, kind, req_k]), 0).to(torch.int32)
     return f, i
 
 
 def step_probe(scene, atlas, ro, rd, *, one_side=True, shadow_enabled=True,
                do_fresnel=True, tir=True, pix_angle=0.0, shade_flipped=True,
-               device=None, table=None):
+               device=None, table=None, alive=None):
     """Run the fused step probe on rays ro, rd [N, 3] f32 → (f [NF, N] f32,
     i [3, N] int32).  CUDA tensors launch the kernel; CPU tensors (with
     ``device="cpu"``) run ``step_probe_ref``.  ``scene`` lies on the rays'
     device; ``atlas`` is the TextureSet's SceneAtlas or None.  ``table``:
     the (buf, hdr) of ``pack_scene`` for this scene and atlas, packed once
-    by the caller; packed here when None."""
+    by the caller; packed here when None.  ``alive``: bool or uint8 [N], the
+    lanes whose rows the caller reads (None: every lane); the others, the
+    lanes that miss, and the light rows of a light-bulb hit hold fills
+    (t = INF_T, every other row 0)."""
     dev = resolve_device(device)
     check_rays("step_probe", dev, ro, rd)
     if scene.device != dev:
@@ -344,30 +358,33 @@ def step_probe(scene, atlas, ro, rd, *, one_side=True, shadow_enabled=True,
     hdr = set_flags(hdr, one_side=one_side, shadow_enabled=shadow_enabled,
                     do_fresnel=do_fresnel, tir=tir, shade_flipped=shade_flipped)
     if dev.type == "cpu":
-        return step_probe_ref(buf, hdr, ro, rd, pix_angle)
-    return launch(buf, hdr, ro, rd, pix_angle)
+        check_mask("step_probe", dev, alive, ro.shape[0])
+        return step_probe_ref(buf, hdr, ro, rd, pix_angle, alive)
+    return launch(buf, hdr, ro, rd, pix_angle, alive)
 
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
 
 
-def launch(buf, hdr, ro, rd, pix_angle=0.0):
+def launch(buf, hdr, ro, rd, pix_angle=0.0, alive=None):
     """Launch the kernel on tables packed by ``pack_scene`` and CUDA rays
-    → (f [NF, N] f32, i [3, N] int32), on the current stream.  Counts its
-    launches in ``step_probe.launches``."""
+    → (f [NF, N] f32, i [3, N] int32), on the current stream; ``alive`` as
+    in ``step_probe``.  Counts its launches in ``step_probe.launches``."""
     dev = ro.device
     if dev.type != "cuda":
         raise ValueError(f"step_probe: no kernel for device {dev}")
     check_rays("step_probe", dev, ro, rd)
     check_table("step_probe", buf, hdr, dev)
     N = ro.shape[0]
+    mask = check_mask("step_probe", dev, alive, N)
     f = torch.empty((n_rows(counts_of(hdr)), N), dtype=torch.float32, device=dev)
     i = torch.empty((3, N), dtype=torch.int32, device=dev)
     if N == 0:
         return f, i
     build.run("step_probe", "txr_step_probe", _ARGS, dev, hdr, buf.data_ptr(),
-              float(pix_angle), ro.data_ptr(), rd.data_ptr(), f.data_ptr(), i.data_ptr(), N)
+              float(pix_angle), ro.data_ptr(), rd.data_ptr(),
+              None if mask is None else mask.data_ptr(), f.data_ptr(), i.data_ptr(), N)
     step_probe.launches += 1
     return f, i
 

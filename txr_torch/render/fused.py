@@ -17,7 +17,9 @@ from txr_torch.render.shading import reflect, refract
 from txr_torch.scene.types import TYPE_POINT_LIGHT, TYPE_SPHERE
 
 
-def _probe(scene, textures, cfg, ro, rd, shade_flipped, table=None):
+def _probe(scene, textures, cfg, ro, rd, shade_flipped, table=None, alive=None):
+    """The step probe's rows as a dict (``unpack``); ``alive`` [R] bool, the
+    lanes the caller reads (None: every lane)."""
     from txr_torch.render.trace import _pix_angle
 
     f, i = step_probe(
@@ -25,23 +27,20 @@ def _probe(scene, textures, cfg, ro, rd, shade_flipped, table=None):
         one_side=cfg.plane_oneside, shadow_enabled=cfg.shadow_enabled,
         do_fresnel=cfg.do_fresnel, tir=cfg.total_internal_reflection,
         pix_angle=_pix_angle(cfg) or 0.0, shade_flipped=shade_flipped,
-        device=ro.device, table=table)
+        device=ro.device, table=table, alive=alive)
     return unpack(f, i, scene.counts)
 
 
-def _fetch_texels(textures, cfg, pr, ty, alive=None):
+def _fetch_texels(textures, cfg, pr, ty):
     """The one atlas fetch serving every textured hit type, fed by the
     probe's requests.  Sphere lanes carry the rotated normal; the spherical
-    UV is finished here.  Only lanes that request texels and count
-    (``alive``) are fetched; None when there are none."""
+    UV is finished here.  Only lanes that request texels are fetched (a
+    lane the probe skipped requests none); None when there are none."""
     atlas = textures.atlas
     if atlas is None:
         return None
     kind = pr["kind"]
-    need = (kind == KIND_RGBA) | (kind == KIND_BOX)
-    if alive is not None:
-        need = need & alive
-    lanes = torch.nonzero(need).squeeze(-1)
+    lanes = torch.nonzero((kind == KIND_RGBA) | (kind == KIND_BOX)).squeeze(-1)
     if not lanes.numel():
         return None
     # fetch for the requesting lanes only; the others read 1 and never use it
@@ -50,7 +49,7 @@ def _fetch_texels(textures, cfg, pr, ty, alive=None):
     uv = torch.where(sphere_tex[..., None], tx.sphere_uv(req), req[..., :2])
     k = torch.clamp(pr["req_k"][lanes], 0, len(atlas.dims) - 1)
     lod = pr["lod"][lanes] if cfg.texture_lod else None
-    texc = torch.ones(need.shape + (4,), dtype=req.dtype, device=req.device)
+    texc = torch.ones(kind.shape + (4,), dtype=req.dtype, device=req.device)
     return texc.index_copy_(0, lanes, tx.sample_atlas(atlas, k, uv, lod))
 
 
@@ -129,7 +128,7 @@ def fused_step_fwd(scene, textures, cfg, st, pr=None, table=None):
     bounces = st["bounces"]
 
     if pr is None:
-        pr = _probe(scene, textures, cfg, ro, rd, shade_flipped=True, table=table)
+        pr = _probe(scene, textures, cfg, ro, rd, shade_flipped=True, table=table, alive=alive)
     t = pr["t"]
     hit, ty, idx = _types_of(scene, pr)
     act = alive & hit
@@ -143,7 +142,7 @@ def fused_step_fwd(scene, textures, cfg, st, pr=None, table=None):
         alive = alive & ~is_light
         act = act & ~is_light
 
-    mcol, alpha = _apply_texture(pr, _fetch_texels(textures, cfg, pr, ty, alive=st["alive"]))
+    mcol, alpha = _apply_texture(pr, _fetch_texels(textures, cfg, pr, ty))
 
     n = pr["n"]                      # already flipped to face the ray
     outside = pr["outside"]

@@ -248,11 +248,13 @@ def shadow_from_probes(scene, textures, solid, ring_hit, ring_uv):
     return torch.clamp(sh, max=1.0)
 
 
-def shadow_factor(scene, ro, rd, dist, textures=None, one_side_planes=True, table=None):
+def shadow_factor(scene, ro, rd, dist, textures=None, one_side_planes=True, table=None,
+                  need=None):
     """inShadow (rt.frag:630-658) for shadow rays ro, rd [R,3] toward a
-    light at ``dist`` [R] → shadow ∈ [0, 1], [R]."""
+    light at ``dist`` [R] → shadow ∈ [0, 1], [R].  ``need`` [R] bool: the
+    rays to trace (None: all); the others read 0, unshadowed."""
     buf, hdr = _table(scene, table, one_side_planes)
     solid, ring_hit, ring_uv = shadow_sweep(buf, hdr, ro.detach().contiguous(),
                                             rd.detach().contiguous(),
-                                            dist.detach().contiguous())
+                                            dist.detach().contiguous(), need)
     return shadow_from_probes(scene, textures, solid, ring_hit, ring_uv)

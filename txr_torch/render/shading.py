@@ -65,13 +65,15 @@ def _spec_pow(base, exponent):
 
 def calc_shade(scene, textures, pt, rd, mat_color, mat_diffuse, mat_specular, mat_kd, mat_ks,
                normal, do_shadow=True, shadow_enabled=True, one_side_planes=True,
-               shadow_saved=None, table=None):
+               shadow_saved=None, table=None, need=None):
     """calcShade (rt.frag:681-709): ambient + per-light Phong with shadows
     and distance attenuation.  pt, rd, normal [R,3]; materials [R] / [R,3]
     → RGB [R,3].  Lights are point lights, then directional ones
     (dist = MAX_DIST); one shadow sweep covers them all, the [R, L] shadow
     rays flattened to R·L.  ``shadow_saved`` [R, L]: the shadow factors of
-    the fused route's probe, used instead of the sweep."""
+    the fused route's probe, used instead of the sweep.  ``need`` [R] bool:
+    the lanes whose shade the caller reads (None: every lane); only their
+    shadow rays are traced, the others count as unshadowed."""
     c = scene.counts
     ambient = scene.ambient_color * mat_color
     if c["lights_point"] + c["lights_direct"] == 0:
@@ -104,8 +106,9 @@ def calc_shade(scene, textures, pt, rd, mat_color, mat_diffuse, mat_specular, ma
             sh = shadow_saved
         else:
             ro_f = pt[..., None, :].expand(ld.shape).reshape(-1, 3)
+            need_f = None if need is None else need[..., None].expand(dist.shape).reshape(-1)
             sh = shadow_factor(scene, ro_f, ld.reshape(-1, 3), dist.reshape(-1), textures,
-                               one_side_planes, table).reshape(dist.shape)
+                               one_side_planes, table, need_f).reshape(dist.shape)
         lc = lc * torch.maximum((1.0 - sh)[..., None], scene.shadow_ambient)
     diffuse = (lc * mat_color[..., None, :] * mat_diffuse[..., None, None] * w).sum(-2)
     spec_dp = torch.clamp((rd[..., None, :] * reflect(ld, normal[..., None, :])).sum(-1), 0.0, 1.0)

@@ -341,7 +341,7 @@ def step_jnp(scene, textures, cfg: RenderConfig, st, saved=None, table=None):
                                           saved["ring_hit"], saved["ring_uv"])
     shade = calc_shade(scene, textures, shade_origin_out, rd, hi["color"], hi["diffuse"],
                        hi["specular"], hi["kd"], hi["ks"], n, True, cfg.shadow_enabled,
-                       cfg.plane_oneside, shadow_saved=shadow_saved, table=table)
+                       cfg.plane_oneside, shadow_saved=shadow_saved, table=table, need=act)
     shade = torch.where((refl_act | diff_act)[..., None], shade, 0.0)
 
     color = torch.where(refl_act[..., None], color + shade * refract_mult[..., None] * mask,
@@ -415,7 +415,7 @@ class _FusedStep(torch.autograd.Function):
     def forward(ctx, spec, *tensors):
         st = dict(zip(STATE_KEYS, tensors))
         pr = _probe(spec.scene, spec.textures, spec.cfg, st["ro"], st["rd"],
-                    shade_flipped=True, table=spec.table)
+                    shade_flipped=True, table=spec.table, alive=st["alive"])
         out = fused_step_fwd(spec.scene, spec.textures, spec.cfg, st, pr=pr, table=spec.table)
         ctx.spec = spec
         ctx.has_rings = pr["ring_hit"] is not None
