@@ -7,16 +7,23 @@ card; run from the repository root:
     python3 chip_smoke.py
 
 Phases, one line each:
-  1. build     compile the step-probe, nearest-hit and shadow-sweep kernels
-               from the sources in the checkout, one nvcc each, all at once
+  1. build     compile the step-probe and shadow-sweep kernels and the demo
+               topology's nearest-hit kernel (its counts fixed at compile
+               time) from the sources in the checkout, one nvcc each, all
+               at once
   2. probe     probe kernel vs its plain PyTorch twin on the card: the demo's
                1080p primary rays plus 8192 random rays, both probe variants;
                then the state at step 1 of the 1080p frame with its alive
                mask; every lane, fills included
-  3. sweeps    nearest-hit kernel vs twin on the same rays; shadow-sweep
-               kernel vs twin on the shadow rays of the 1080p primary hits
-               toward both lights plus 8192 random rays, on every ray and
-               with the need mask of step 0's act lanes
+  3. sweeps    nearest-hit kernel vs twin on every lane, fills included:
+               the same rays, then step 1's state with its alive mask, then
+               the same rays on a second topology (the demo without its
+               torus and ring, whose library is built at first use); no
+               host synchronisation in a CUDA nearest_hit call
+               (set_sync_debug_mode("error")); shadow-sweep kernel vs twin
+               on the shadow rays of the 1080p primary hits toward both
+               lights plus 8192 random rays, on every ray and with the need
+               mask of step 0's act lanes
   4. gate      96×54 demo render on the probe route vs the f64 oracle image
                (txr/ref/gate_oracle.npz), golden criterion
   5. gate-off  the same render on the eager route (fused="off"), through the
@@ -26,7 +33,11 @@ Phases, one line each:
                each bounce step its alive lanes, alive-and-hit lanes, rays
                crossing the torus's bounding sphere, the probe's time on the
                step's state (CUDA events through the wrapper, and the kernel's
-               device time) and its two bounds, and the probe's sum per frame
+               device time) and its two bounds, and the probe's sum per
+               frame; then the eager route's nearest_hit on each of its
+               bounce steps' states with their alive masks: lanes, time,
+               device time (also of a sweep of every lane) and the bound of
+               the live work
   7. grad      demo scene at 48×27, loss mean(img²) over the interior
                pixels: card vs CPU gradients leaf by leaf on the eager
                route, and the probe route's gradients vs the eager route's
@@ -53,6 +64,7 @@ prints no result line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -302,16 +314,24 @@ def compare_probe(fk, ik, fr, ir, counts):
 
 
 def compare_nearest(tk, sk, tr, sr):
-    """nearest_hit kernel (tk, sk) vs twin (tr, sr) → (ok, stats)."""
+    """nearest_hit kernel (tk, sk) vs twin (tr, sr) → (ok, stats); every
+    lane, fills included: a lane agrees when both hit the same slot with t
+    within T_REL, or both hold the fill of a miss (INF_T, slot 0)."""
+    import torch
+
     hk, hr = tk < 1e30, tr < 1e30
     both = hk & hr
     agree = both & (sk == sr)
-    rel = (tk[agree] - tr[agree]).abs() / tr[agree].abs().clamp(min=1e-30)
+    rel = (tk - tr).abs() / tr.abs().clamp(min=1e-30)
+    err = (tk[agree] - tr[agree]).abs()
+    lane = torch.where(both, agree & (rel < T_REL), (hk == hr) & (tk == tr) & (sk == sr))
     stats = dict(hit_agree=float((hk == hr).float().mean()),
                  slot_agree=float(agree.sum()) / max(int(both.sum()), 1),
-                 t_ok=float((rel < T_REL).float().mean()),
-                 max_abs_err=float((tk[agree] - tr[agree]).abs().max()))
-    ok = stats["hit_agree"] > AGREE and stats["slot_agree"] > AGREE and stats["t_ok"] >= AGREE
+                 t_ok=float((rel[agree] < T_REL).float().mean()) if err.numel() else 1.0,
+                 lanes_agree=float(lane.float().mean()),
+                 max_abs_err=float(err.max()) if err.numel() else 0.0)
+    ok = (stats["hit_agree"] > AGREE and stats["slot_agree"] > AGREE and stats["t_ok"] >= AGREE
+          and stats["lanes_agree"] > AGREE)
     return ok, stats
 
 
@@ -400,25 +420,36 @@ def shadow_rays(scene, textures, ro, rd, table, pix):
 
 def frame_states(scene, textures, cfg, device):
     """The per-ray state at the start of each bounce step of one frame on
-    the probe route, recorded from render()'s own bounce loop."""
+    cfg's route (the probe's ``_fused_step`` or the eager ``step_jnp``),
+    recorded from render()'s own bounce loop."""
     import torch
 
     from txr_torch.render import trace as tr
     from txr_torch.render.render import render
 
-    states, step = [], tr._fused_step
+    name = "step_jnp" if cfg.fused == "off" else "_fused_step"
+    states, step = [], getattr(tr, name)
 
-    def record(scene, textures, cfg, st, table):
+    def record(scene, textures, cfg, st, *args, **kw):
         states.append(st)
-        return step(scene, textures, cfg, st, table)
+        return step(scene, textures, cfg, st, *args, **kw)
 
-    tr._fused_step = record
+    setattr(tr, name, record)
     try:
         with torch.no_grad():
             render(scene, textures, cfg, device=device)
     finally:
-        tr._fused_step = step
+        setattr(tr, name, step)
     return states
+
+
+def without(group):
+    """A scene group with no members: every tensor cut to length 0."""
+    kw = {}
+    for f in dataclasses.fields(group):
+        v = getattr(group, f.name)
+        kw[f.name] = without(v) if dataclasses.is_dataclass(v) else v[:0]
+    return dataclasses.replace(group, **kw)
 
 
 def main():
@@ -458,16 +489,17 @@ def main():
         return {k: c.launches for k, c in counters.items()}
 
     # 1. build -----------------------------------------------------------------
+    scene, _ = build_scene(W, H)
+    demo_top = build.topology(pack_scene(scene, None)[1])
     t0 = time.perf_counter()
-    built = build.build_all()
+    built = build.build_all([("step_probe", ()), ("shadow_sweep", ()), ("nearest_hit", demo_top)])
     build_s = time.perf_counter() - t0
     log(f"phase build: {build_s:.1f} s for {len(built)} libraries (one nvcc each, in parallel)")
-    for name, (path, nvcc_log) in built.items():
+    for (name, defines), (path, nvcc_log) in built.items():
         ptxas = " | ".join(ln.strip() for ln in nvcc_log.splitlines()
                            if "registers" in ln or "spill" in ln)
-        log(f"  {name}: {os.path.relpath(path, ROOT)} [{ptxas}]")
+        log(f"  {name} {' '.join(defines)}: {os.path.relpath(path, ROOT)} [{ptxas}]")
 
-    scene, _ = build_scene(W, H)
     scene = scene.to(dev)
     textures = with_mips(demo_textures().to(dev))
     ncount = scene.counts
@@ -520,16 +552,47 @@ def main():
 
     # 3. sweep kernels vs twins ------------------------------------------------
     buf, hdr = table
-    tk, sk = nh.launch(buf, hdr, ro_all, rd_all)
+    # the demo without its torus and ring: zero counts, a second library
+    scene2 = dataclasses.replace(scene, toruses=without(scene.toruses), rings=without(scene.rings))
+    table2 = pack_scene(scene2, None)
+    err["nearest_hit"] = 0.0
+    build2_s = None
+    for what, (b_, h_), o_, d_, alive in (
+            ("the same rays, no mask", table, ro_all, rd_all, None),
+            (f"step 1 of the 1080p frame, alive mask: {int(s1['alive'].sum())} of "
+             f"{s1['alive'].numel()} lanes", table, s1["ro"], s1["rd"], s1["alive"]),
+            (f"the same rays on a second topology {' '.join(build.topology(table2[1]))}, "
+             "no mask", table2, ro_all, rd_all, None)):
+        t0 = time.perf_counter()
+        tk, sk = nh.launch(b_, h_, o_, d_, alive)
+        torch.cuda.synchronize()
+        if b_ is table2[0]:
+            build2_s = time.perf_counter() - t0
+            what += f", its library built at first use in {build2_s:.1f} s"
+        tr, sr = nh.nearest_hit_ref(b_, h_, o_, d_, alive)
+        ok, st = compare_nearest(tk, sk, tr, sr)
+        err["nearest_hit"] = max(err["nearest_hit"], st["max_abs_err"])
+        log(f"phase sweeps nearest_hit ({o_.shape[0]} rays, {what}): {json.dumps(st)}"
+            + (" PASS" if ok else " FAIL"))
+        if not ok:
+            fail("nearest_hit kernel disagrees with its twin")
+        del tk, sk, tr, sr
+    # a CUDA nearest_hit call waits on nothing: no sync, no host-to-device copy
+    ro_g = s1["ro"].clone().requires_grad_(True)
     torch.cuda.synchronize()
-    tr, sr = nh.nearest_hit_ref(buf, hdr, ro_all, rd_all)
-    ok, st = compare_nearest(tk, sk, tr, sr)
-    err["nearest_hit"] = st["max_abs_err"]
-    log(f"phase sweeps nearest_hit ({ro_all.shape[0]} rays): {json.dumps(st)}"
-        + (" PASS" if ok else " FAIL"))
-    if not ok:
-        fail("nearest_hit kernel disagrees with its twin")
-    del tk, sk, tr, sr
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            nearest_hit(scene, s1["ro"], s1["rd"], True, table, alive=s1["alive"])
+        nearest_hit(scene, ro_g, s1["rd"], True, table, alive=s1["alive"])
+    except RuntimeError as e:
+        fail(f"a CUDA nearest_hit call synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("phase sweeps nearest_hit: two calls of render.intersect.nearest_hit (detached, and "
+        "with a gradient) on step 1's state under torch.cuda.set_sync_debug_mode('error'): no "
+        "host synchronisation -> PASS")
+    del ro_g
     so, sd, sdist, sneed = shadow_rays(scene, textures, ro, rd, table, pix)
     sdist2 = torch.from_numpy(rng.uniform(0.5, 3e4, N_RANDOM).astype(np.float32)).to(dev)
     so_all = torch.cat([so, ro2]).contiguous()
@@ -607,6 +670,33 @@ def main():
         f"steps by CUDA events ({probe_frame_device_ms:.3f} ms kernel device time; the glossy "
         f"passes' launches not included)")
     del states, s1
+    # the eager route's nearest_hit on each bounce step's state, as step_jnp
+    # calls it (the alive mask), beside a sweep of every lane of the state
+    cnt, sec = sections(buf, hdr)
+    eager = dict(ms=0.0, device_ms=0.0, every_lane_device_ms=0.0)
+    for k, st in enumerate(frame_states(scene, textures, dataclasses.replace(cfg, fused="off"),
+                                        dev)):
+        o_, d_, alive = st["ro"], st["rd"], st["alive"]
+        ms = cuda_ms(lambda: nh.launch(buf, hdr, o_, d_, alive), KERNEL_REPS)
+        dms = device_ms(lambda: nh.launch(buf, hdr, o_, d_, alive), "nearest_hit_kernel",
+                        KERNEL_REPS)
+        ems = device_ms(lambda: nh.launch(buf, hdr, o_, d_), "nearest_hit_kernel", KERNEL_REPS)
+        for key, v in zip(eager, (ms, dms, ems)):
+            eager[key] += v
+        lanes = torch.nonzero(alive).squeeze(-1)
+        o3, d3 = o_[lanes].unbind(-1), d_[lanes].unbind(-1)
+        crossing = int(sum(c for _, c in torus_ops(sec, o3, d3)).sum()) if cnt["toruses"] else 0
+        ops = float(sweep_needed_ops(cnt, sec, o3, d3).sum())
+        # the mask read and (t, slot) written for every lane, the live lanes' rays read
+        nbytes = o_.shape[0] * (1 + 8) + lanes.numel() * 24 + buf.numel() * 4
+        need_ms, need_by = bound(ops, nbytes)
+        log(f"phase forward eager step {k}: alive {lanes.numel()}, crossing the torus sphere "
+            f"{crossing} (of the alive), nearest_hit {ms:.4f} ms through its wrapper by CUDA "
+            f"events (kernel device time {dms:.4f} ms; every lane, no mask, {ems:.4f} ms), bound {need_ms:.4f} ms by {need_by} for the live work "
+            f"({ops / 1e9:.4f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    log(f"phase forward eager: nearest_hit {eager['ms']:.4f} ms per frame over its bounce "
+        f"steps by CUDA events (device {eager['device_ms']:.4f} ms; every lane "
+        f"{eager['every_lane_device_ms']:.4f} ms; the glossy passes not included)")
 
     # 7. gradients: card vs CPU, probe route vs eager route ----------------------
     def interior(w, h):
@@ -742,7 +832,6 @@ def main():
     # their shadow rays toward both lights (the shadow sweep, with the need
     # mask of step 0's act lanes as the eager route passes it, and without)
     n, ns = ro.shape[0], so.shape[0]
-    cnt, sec = sections(buf, hdr)
     tab = buf.numel() * 4
     full = dict(step_probe=(probe_ops_per_ray(ncount) * n, n * (24 + 4 * sp.n_rows(ncount) + 12)),
                 nearest_hit=(sweep_ops_per_ray(ncount) * n, n * (24 + 8)),
@@ -781,6 +870,10 @@ def main():
         rays = n if name != "shadow_sweep" else ns
         if name == "step_probe":
             extra.update(frame_ms=probe_frame_ms, frame_device_ms=probe_frame_device_ms)
+        elif name == "nearest_hit":
+            extra.update(eager_steps_ms=eager["ms"], eager_steps_device_ms=eager["device_ms"],
+                         eager_steps_device_ms_every_lane=eager["every_lane_device_ms"],
+                         build_s_second_topology=build2_s)
         elif name == "shadow_sweep":
             every_ray = lambda: ss.launch(buf, hdr, so, sd, sdist)
             extra.update(ms_every_ray=cuda_ms(every_ray, KERNEL_REPS),

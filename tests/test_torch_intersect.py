@@ -268,36 +268,45 @@ def test_shadow_sweep_twin_matches_pallas(demo_tile):
     np.testing.assert_allclose(guv[both], wuv[both], rtol=1e-4, atol=1e-4)
 
 
-def test_nearest_hit_backward_matches_jax_vjp(demo_tile):
-    """The autograd.Function's backward (t_of_winner on the winner) vs
-    jax.vjp of the JAX nearest_hit's custom VJP, for a random cotangent of t:
-    ro, rd per non-torus lane to 1e-3 of the lane's gradient norm; every
-    scene leaf to 2e-2 of its norm (torus leaves 5e-2)."""
-    jscene, tscene, RO, RD, torus_slot = demo_tile
-    rng = np.random.default_rng(5)
-    ct = rng.normal(size=LANES).astype(np.float32)
-    jleaves = {k: v for k, v in _jax_leaves(jscene).items()}
+@pytest.fixture(scope="module")
+def jax_nearest_vjp():
+    """(t, ty, scene, ro and rd cotangents) of jax.vjp of the JAX nearest_hit's
+    custom VJP for a cotangent ct of t, zero where t misses."""
     @jax.jit
     def jax_side(s, o, d, ct):
         (t, ty, _), vjp = jax.vjp(lambda s, o, d: jri.nearest_hit(s, o, d, True, "jnp"), s, o, d)
         zero = np.zeros(LANES, jax.dtypes.float0)
         return (t, ty) + vjp((jnp.where(jnp.isfinite(t), ct, 0.0), zero, zero))
 
+    return jax_side
+
+
+def _backward_vs_jax(demo_tile, jax_side, alive):
+    """The port's nearest_hit backward, with lane mask ``alive`` (or None),
+    vs jax.vjp with the cotangent zeroed on the dead lanes: ro, rd per live
+    non-torus lane to 1e-3 of the lane's gradient norm, zero on dead lanes;
+    every scene leaf to 2e-2 of its norm (torus leaves 5e-2)."""
+    jscene, tscene, RO, RD, torus_slot = demo_tile
+    rng = np.random.default_rng(5)
+    ct = rng.normal(size=LANES).astype(np.float32)
+    live = np.ones(LANES, bool) if alive is None else alive.numpy()
     t_j, ty_j, g_scene, g_ro, g_rd = jax_side(jscene, jnp.asarray(RO), jnp.asarray(RD),
-                                              jnp.asarray(ct))
+                                              jnp.asarray(np.where(live, ct, 0.0)))
     t_j = np.asarray(t_j)
     leaves = float_leaves(tscene)
     ro, rd = torch.from_numpy(RO).requires_grad_(True), torch.from_numpy(RD).requires_grad_(True)
     for v in leaves.values():
         v.requires_grad_(True)
-    t, ty, _ = tri.nearest_hit(tscene, ro, rd)
+    t, ty, _ = tri.nearest_hit(tscene, ro, rd, alive=alive)
+    assert not torch.isfinite(t[~torch.from_numpy(live)]).any()
     loss = (torch.where(torch.isfinite(t), t, 0.0) * torch.from_numpy(ct)).sum()
     grads = torch.autograd.grad(loss, [ro, rd, *leaves.values()], allow_unused=True)
-    same = (ty.numpy() == np.asarray(ty_j)) & np.isfinite(t_j)
-    assert same.mean() >= 0.99 * np.isfinite(t_j).mean()
+    same = (ty.numpy() == np.asarray(ty_j)) & np.isfinite(t_j) & live
+    assert same.sum() >= 0.99 * (np.isfinite(t_j) & live).sum()
     torus = ty.numpy() == TYPE_TORUS
     lanes = same & ~torus
     for g, w in ((grads[0], g_ro), (grads[1], g_rd)):      # per lane, 1e-3 of |w|
+        assert (g.numpy()[~live] == 0).all()
         g, w = g.numpy()[lanes], np.asarray(w)[lanes]
         err = np.linalg.norm(g - w, axis=-1)
         assert (err <= 1e-3 * np.linalg.norm(w, axis=-1) + 1e-4).all(), err.max()
@@ -310,6 +319,20 @@ def test_nearest_hit_backward_matches_jax_vjp(demo_tile):
         g = got.get(k, np.zeros_like(w))
         rtol = 5e-2 if "toruses" in k else 2e-2
         assert np.linalg.norm(g - w) <= rtol * np.linalg.norm(w) + 1e-4, (k, g, w)
+
+
+def test_nearest_hit_backward_matches_jax_vjp(demo_tile, jax_nearest_vjp):
+    """The autograd.Function's backward (t_of_winner on the winner) vs
+    jax.vjp of the JAX nearest_hit's custom VJP, for a random cotangent of t
+    (``_backward_vs_jax``), every lane traced."""
+    _backward_vs_jax(demo_tile, jax_nearest_vjp, None)
+
+
+def test_nearest_hit_backward_masked_matches_jax_vjp(demo_tile, jax_nearest_vjp):
+    """The same with a lane mask on 40 % of the lanes: the live lanes as
+    jax.vjp's, the dead lanes missed and without gradient."""
+    alive = torch.from_numpy(np.random.default_rng(6).random(LANES) < 0.4)
+    _backward_vs_jax(demo_tile, jax_nearest_vjp, alive)
 
 
 @pytest.mark.parametrize("mod", ["nearest_hit", "shadow_sweep"])

@@ -1,21 +1,23 @@
-"""Lane masks and early outs of the step-probe and shadow-sweep kernels, on
-their plain twins.
+"""Lane masks and early outs of the three kernels, on their plain twins.
 
-The kernels skip work their callers never read: the probe sweeps only the
-``alive`` lanes and shades only the live lanes that hit something other than
-a light bulb, the shadow sweep traces only the ``need`` rays, a shadow ray
-stops at its first solid occluder, and the torus's Ferrari solve runs only
-on lines that cross its inflated bounding sphere.  A skipped lane holds a
-fixed fill, the same in kernel and twin (the card compares the two:
-``chip_smoke.py``).  Here, on the CPU:
+The kernels skip work their callers never read: the probe and the
+nearest-hit sweep trace only the ``alive`` lanes, the probe shades only the
+live lanes that hit something other than a light bulb, the shadow sweep
+traces only the ``need`` rays, a shadow ray stops at its first solid
+occluder, and the torus's Ferrari solve runs only on lines that cross its
+inflated bounding sphere.  A skipped lane holds a fixed fill, the same in
+kernel and twin (the card compares the two: ``chip_smoke.py``).  Here, on
+the CPU:
 
 - the culled torus test equals the uncut one, bit for bit, on seeded random
   rays and on rays tangent to, just inside and just outside the bounding
   sphere, near and far, for three torus poses;
 - the any-hit bit is the OR over the occluders in the kernel's order;
-- the probe twin with ``alive`` equals the twin without it on live lanes,
-  bit for bit, and holds the fills on the others; likewise the shadow twin
-  with ``need``;
+- the probe and nearest-hit twins with ``alive`` equal the twins without
+  it on live lanes, bit for bit, and hold the fills on the others;
+  likewise the shadow twin with ``need``;
+- the nearest-hit library is one per scene topology, and the sweep's slot
+  lookup is built once per topology, not per call;
 - 32×18 demo renders on each route are bit-identical with the masks dropped
   (the calls monkeypatched), and the 16×9 gradients agree within 1e-6.
 
@@ -23,11 +25,15 @@ The JAX comparisons of these twins are in test_torch_probe.py,
 test_torch_intersect.py, test_torch_render.py and test_torch_grads.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from txr_torch.apps import demo as tdemo
+from txr_torch.kernels import build as kbuild
+from txr_torch.kernels import nearest_hit as tnh
 from txr_torch.kernels import primitives as prim
 from txr_torch.kernels import shadow_sweep as tss
 from txr_torch.kernels import step_probe as tsp
@@ -158,6 +164,67 @@ def test_probe_alive_matches_unmasked(demo, probes, flipped, mask):
     assert (f0[23:, bulb] == 0).all()
 
 
+@pytest.mark.parametrize("mask", ["all", "none", "random30", "clustered"])
+def test_nearest_alive_matches_unmasked(demo, mask):
+    scene, _, RO, RD, masks = demo
+    buf, hdr = pack_scene(scene, None)
+    alive = masks[mask]
+    t0, s0 = tnh.nearest_hit_ref(buf, hdr, RO, RD)
+    t, s = tnh.nearest_hit_sweep(buf, hdr, RO, RD, alive)
+    assert torch.equal(t[alive], t0[alive]) and torch.equal(s[alive], s0[alive])
+    assert (t[~alive] == prim.INF_T).all() and (s[~alive] == 0).all()
+    # the fill is a miss's: misses hold it without a mask too
+    miss = t0 >= prim.BIG
+    assert 0 < int(miss.sum()) < RO.shape[0]
+    assert (t0[miss] == prim.INF_T).all() and (s0[miss] == 0).all()
+
+
+def test_sweep_reuses_slot_lookup(demo):
+    """The (type, index) lookup of the sweep's slots is built once per
+    topology and device, on the device, not on every call."""
+    scene, _, RO, RD, masks = demo
+    table = pack_scene(scene, None)
+    rint._slot_lookup.cache_clear()
+    out = [rint._sweep(scene, RO, RD, True, table, masks["random30"]) for _ in range(2)]
+    assert rint._slot_lookup.cache_info().misses == 1
+    assert rint._type_tables(scene)[0] is rint._type_tables(scene)[0]
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    ty, idx = rint._type_tables(scene)
+    n = sum(scene.counts[k] for k in SLOT_ORDER)
+    assert ty.shape == idx.shape == (n,) and ty.dtype == idx.dtype == torch.int64
+    assert int(ty[-1]) == rint.TYPE_POINT_LIGHT and int(idx[-1]) == 0
+
+
+def _without(group):
+    """A scene group with no members (every tensor cut to length 0)."""
+    kw = {}
+    for f in dataclasses.fields(group):
+        v = getattr(group, f.name)
+        kw[f.name] = _without(v) if dataclasses.is_dataclass(v) else v[:0]
+    return dataclasses.replace(group, **kw)
+
+
+def test_nearest_library_per_topology(demo):
+    """The nearest-hit kernel's library fixes the slot counts: one library
+    per topology, whatever the flags, the other sections or the values."""
+    scene = demo[0]
+    buf, hdr = pack_scene(scene, None)
+    cut = dataclasses.replace(scene, toruses=_without(scene.toruses), rings=_without(scene.rings))
+    _, hdr2 = pack_scene(cut, None)
+    top, top2 = kbuild.topology(hdr), kbuild.topology(hdr2)
+    c = scene.counts
+    assert top == tuple(f"{k}={c[n]}" for k, n in zip(kbuild.COUNT_DEFINES, SLOT_ORDER))
+    assert top2 != top and "TXR_N_TO=0" in top2 and "TXR_N_RI=0" in top2
+    assert kbuild.topology(pack_scene(scene, None, one_side=False, shade_flipped=False)[1]) == top
+    moved = dataclasses.replace(scene, spheres=dataclasses.replace(
+        scene.spheres, pos=scene.spheres.pos + 1.0))
+    assert kbuild.topology(pack_scene(moved, None)[1]) == top
+    paths = [kbuild.lib_path("nearest_hit", t) for t in (top, top2, top)]
+    assert paths[0] == paths[2] != paths[1]
+    assert kbuild.lib_path("step_probe") not in paths
+
+
 def test_mask_is_checked():
     with pytest.raises(ValueError, match="lane mask"):
         check_mask("probe", torch.device("cpu"), torch.ones(5, dtype=torch.int32), 5)
@@ -244,9 +311,16 @@ def _drop_shadow_mask(orig):
     return sweep
 
 
+def _drop_nearest_mask(orig):
+    def sweep(buf, hdr, ro, rd, alive=None):
+        return orig(buf, hdr, ro, rd)
+    return sweep
+
+
 def _drop_masks(monkeypatch, fused):
     if fused == "off":
         monkeypatch.setattr(rint, "shadow_sweep", _drop_shadow_mask(rint.shadow_sweep))
+        monkeypatch.setattr(rint, "nearest_hit_sweep", _drop_nearest_mask(rint.nearest_hit_sweep))
     else:
         monkeypatch.setattr(rfused, "step_probe", _drop_probe_mask(rfused.step_probe))
 

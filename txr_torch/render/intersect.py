@@ -18,6 +18,7 @@ of a textured ring's alpha at the kernel's hit uv.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -47,22 +48,25 @@ from txr_torch.utils.index import take
 
 MAX_DIST = gi.MAX_DIST
 INF = float("inf")
+# the type code of each entry of SLOT_ORDER
+_SLOT_TYPES = (TYPE_PLANE, TYPE_SPHERE, TYPE_SURFACE, TYPE_BOX, TYPE_TORUS, TYPE_RING,
+               TYPE_POINT_LIGHT)
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_lookup(counts, device):
+    """(type [n_slots], index-within-type [n_slots]) int64 on ``device`` for
+    slot counts ``counts`` (SLOT_ORDER), built there from fills and
+    aranges: no host-to-device copy, and once per topology and device."""
+    types = [torch.full((n,), ty, dtype=torch.int64, device=device)
+             for ty, n in zip(_SLOT_TYPES, counts)]
+    idxs = [torch.arange(n, dtype=torch.int64, device=device) for n in counts]
+    return torch.cat(types), torch.cat(idxs)
 
 
 def _type_tables(scene):
-    """(type [n_slots], index-within-type [n_slots]) int64 tensors."""
-    c = scene.counts
-    order = [(TYPE_PLANE, c["planes"]), (TYPE_SPHERE, c["spheres"]),
-             (TYPE_SURFACE, c["surfaces"]), (TYPE_BOX, c["boxes"]),
-             (TYPE_TORUS, c["toruses"]), (TYPE_RING, c["rings"]),
-             (TYPE_POINT_LIGHT, c["lights_point"])]
-    types, idxs = [], []
-    for ty, n in order:
-        types += [ty] * n
-        idxs += list(range(n))
-    dev = scene.device
-    return (torch.tensor(types, dtype=torch.int64, device=dev),
-            torch.tensor(idxs, dtype=torch.int64, device=dev))
+    """The scene's slot lookup (``_slot_lookup``), shared by every call."""
+    return _slot_lookup(tuple(scene.counts[k] for k in SLOT_ORDER), scene.device)
 
 
 def _table(scene, table, one_side_planes):
@@ -154,21 +158,25 @@ def nearest_hit_saved(scene, ro, rd, slot, t0, one_side_planes=True):
     type_tab, idx_tab = _type_tables(scene)
     slot = slot.to(torch.int64)
     hit = torch.isfinite(t0)
-    ty = torch.where(hit, type_tab[slot], -1)
-    idx = idx_tab[slot]
+    ty = torch.where(hit, type_tab.index_select(0, slot), -1)
+    idx = idx_tab.index_select(0, slot)
     t = t_of_winner(scene, ro, rd, ty, idx, one_side_planes, t0=t0)
     t = torch.where(hit & ~torch.isfinite(t), t0, t)
     return torch.where(hit, t, INF), ty, idx
 
 
-def _sweep(scene, ro, rd, one_side_planes, table):
-    """The detached winner search → (t0 [R], +inf on a miss; ty; idx)."""
+def _sweep(scene, ro, rd, one_side_planes, table, alive=None):
+    """The detached winner search → (t0 [R], +inf on a miss; ty; idx); the
+    lanes off in ``alive`` read as misses.  On CUDA tensors: one kernel
+    launch and a few elementwise ops, no host synchronisation."""
     buf, hdr = _table(scene, table, one_side_planes)
-    t0, slot = nearest_hit_sweep(buf, hdr, ro.detach().contiguous(), rd.detach().contiguous())
+    t0, slot = nearest_hit_sweep(buf, hdr, ro.detach().contiguous(), rd.detach().contiguous(),
+                                 alive)
     type_tab, idx_tab = _type_tables(scene)
     slot = slot.to(torch.int64)
     hit = t0 < MAX_DIST
-    return torch.where(hit, t0, INF), torch.where(hit, type_tab[slot], -1), idx_tab[slot]
+    return (torch.where(hit, t0, INF), torch.where(hit, type_tab.index_select(0, slot), -1),
+            idx_tab.index_select(0, slot))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +185,7 @@ class _Spec:
     paths: tuple           # dotted paths of the float leaves passed to apply
     one_side: bool
     table: object
+    alive: object          # the sweep's lane mask, or None
 
 
 class _NearestHit(torch.autograd.Function):
@@ -186,7 +195,7 @@ class _NearestHit(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, spec, ro, rd, *leaves):
-        t0, ty, idx = _sweep(spec.scene, ro, rd, spec.one_side, spec.table)
+        t0, ty, idx = _sweep(spec.scene, ro, rd, spec.one_side, spec.table, spec.alive)
         ctx.spec = spec
         ctx.save_for_backward(ro, rd, t0, ty, idx, *leaves)
         ctx.mark_non_differentiable(ty, idx)
@@ -208,10 +217,11 @@ class _NearestHit(torch.autograd.Function):
         return (None,) + tuple(next(grads) if n else None for n in need)
 
 
-def nearest_hit(scene, ro, rd, one_side_planes=True, table=None):
+def nearest_hit(scene, ro, rd, one_side_planes=True, table=None, alive=None):
     """calcInter → (t [R], type [R], idx [R]) int64; a miss is t = +inf,
     type = −1.  ``table``: ``pack_scene``'s (buf, hdr) of this scene, packed
-    once by the caller; packed here when None."""
+    once by the caller; packed here when None.  ``alive`` [R] bool: the rays
+    to trace (None: all); the others read as misses, with zero gradient."""
     R = ro.shape[:-1]
     if not sum(scene.counts[k] for k in SLOT_ORDER):
         return (torch.full(R, INF, dtype=ro.dtype, device=ro.device),
@@ -220,8 +230,8 @@ def nearest_hit(scene, ro, rd, one_side_planes=True, table=None):
     leaves = float_leaves(scene)
     if not torch.is_grad_enabled() or not any(
             x.requires_grad for x in (ro, rd, *leaves.values())):
-        return _sweep(scene, ro, rd, one_side_planes, table)
-    spec = _Spec(scene, tuple(leaves), one_side_planes, table)
+        return _sweep(scene, ro, rd, one_side_planes, table, alive)
+    spec = _Spec(scene, tuple(leaves), one_side_planes, table, alive)
     return _NearestHit.apply(spec, ro, rd, *leaves.values())
 
 

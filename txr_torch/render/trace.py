@@ -265,7 +265,8 @@ def step_jnp(scene, textures, cfg: RenderConfig, st, saved=None, table=None):
     bounces = st["bounces"]
 
     if saved is None:
-        t, ty, idx = nearest_hit(scene, ro, rd, cfg.plane_oneside, table)
+        # dead lanes are not traced: they read as misses, which alive masks
+        t, ty, idx = nearest_hit(scene, ro, rd, cfg.plane_oneside, table, alive=alive)
     else:
         t, ty, idx = nearest_hit_saved(scene, ro, rd, saved["slot"], saved["t"],
                                        cfg.plane_oneside)
