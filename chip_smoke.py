@@ -50,6 +50,30 @@ Phases, one line each:
                (its peak memory)
   9. optimize  optimize_scene, 5 Adam steps at 1080p on the camera and the
                spheres from a perturbed demo scene toward the demo frame
+ 10. aa        96×54 edge AA (k = 4) on both routes: re-rendered pixels
+               within 1e-5 of the card's uniform SSAA, every other pixel
+               the 1-spp frame's bit for bit, the card's image against the
+               CPU's by the gate's criterion
+ 11. aa 1080p  the demo frame with with_aa_preset("ultra") on the probe
+               route: edge pixels against the budget and the share left at
+               1 spp, the edge pass's probe launches, the edge-AA frame's
+               time beside the 1-spp frame's (CUDA events, same call)
+ 12. chunk     96×54 with ray_chunk = 1024 against the unchunked render
+ 13. debug     render_debug at 96×54, bounce 0 and 1, card against CPU:
+               type and index equal but on lanes where t ties, a torus is
+               involved or a silhouette ray hits on one side only (counted,
+               at most 0.5 %); t within 1e-4 relative; normals within 1e-4
+               on all but 0.1 % of the lanes and 1e-3 on every one
+ 14. checkpoint  48×27, 6 Adam steps on each route: two plain runs (are
+               they bit-identical on the card?), 4 steps with a checkpoint
+               every 2 and a resume to 6 in a fresh optimiser; the
+               restored parameters and Adam moments equal the saved ones
+               bit for bit
+ 15. demo      apps.demo.main at 1920×1080, 3 frames, --aa ultra, a short
+               --fly script, the last frame written as a PNG (in a
+               temporary directory) and read back
+Every phase from 4 on counts kernel launches from zero around its own run
+and fails if a kernel of its path did not launch.
 Then each kernel alone, one full-width launch on tables packed once, timed
 through its wrapper by CUDA events (``ms``, as earlier records) and by its
 device time in a torch.profiler trace (``device_ms``, the kernel alone), vs
@@ -83,6 +107,9 @@ FRAMES = 5
 TRAIN_STEPS = 3
 OPT_STEPS = 5
 KERNEL_REPS = 20
+AA_K = 4                  # the "ultra" preset's factor
+AA_FRAMES = 3
+CK_W, CK_H, CK_STEPS = 48, 27, 6
 
 # The kernel comparisons' thresholds (as tpu_smoke.py:101-108): f32 root
 # placement at silhouettes may legitimately flip a lane between kernel and
@@ -381,19 +408,21 @@ def device_ms(fn, kernel, reps):
     fn()
     torch.cuda.synchronize()
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        times = [ms for name, ms in device_events(path) if kernel in name]
-    # the tracer may drop a few device records; the mean needs only some
-    if len(times) < reps // 2:
-        fail(f"the trace holds {len(times)} launches of {kernel}, fewer than half of the "
-             f"{reps} made")
-    return sum(times) / len(times)
+    # the tracer may drop device records, at times every one of a trace's;
+    # the mean needs at least half of them, from one of three traces
+    for _ in range(3):
+        with torch.profiler.profile(activities=act) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            times = [ms for name, ms in device_events(path) if kernel in name]
+        if len(times) >= reps // 2:
+            return sum(times) / len(times)
+    fail(f"three traces hold at most {len(times)} launches of {kernel}, fewer than half of "
+         f"the {reps} made")
 
 
 def shadow_rays(scene, textures, ro, rd, table, pix):
@@ -459,7 +488,9 @@ def main():
         fail("torch.cuda.is_available() is false; this smoke test needs a CUDA card")
     sys.path.insert(0, ROOT)
     try:
+        from txr_torch.apps import demo as demo_app
         from txr_torch.apps.demo import build_scene, demo_textures
+        from txr_torch.diff import optimize as opt_mod
         from txr_torch.diff.optimize import optimize_scene
         from txr_torch.kernels import build
         from txr_torch.kernels import nearest_hit as nh
@@ -468,11 +499,14 @@ def main():
         from txr_torch.kernels.scene_table import pack_scene, sections
         from txr_torch.render.intersect import nearest_hit
         from txr_torch.render.raygen import primary_rays
-        from txr_torch.render.render import render
+        from txr_torch.render import render as rr
+        from txr_torch.render.render import edge_pixels, render, render_debug
         from txr_torch.render.texture import with_mips
         from txr_torch.render.trace import RenderConfig, auto_refraction_steps
-        from txr_torch.scene.types import float_leaves, unflatten_like
-        from txr_torch.utils.image import golden_check
+        from txr_torch.scene.types import (TYPE_TORUS, flatten_with_paths, float_leaves,
+                                           unflatten_like)
+        from txr_torch.utils.checkpoint import load_arrays
+        from txr_torch.utils.image import golden_check, load_image
     except ImportError as e:
         fail(f"the txr_torch package is not beside this script ({e})")
 
@@ -826,6 +860,217 @@ def main():
     if not ok:
         fail("optimize_scene did not lower the loss")
 
+    # 10. edge AA at the gate's size, both routes ------------------------------
+    for fused, kernels in (("auto", ("step_probe",)), ("off", ("nearest_hit", "shadow_sweep"))):
+        acfg = RenderConfig(width=GATE_W, height=GATE_H, iterations=5, extra_refraction_steps=6,
+                            fused=fused)
+        ecfg = dataclasses.replace(acfg, supersample=AA_K)
+        with torch.no_grad():
+            one = render(gscene, textures, acfg, device=dev)
+            ssaa = render(gscene, textures, dataclasses.replace(ecfg, aa_mode="ssaa"), device=dev)
+            reset_counts()
+            edge = render(gscene, textures, ecfg, device=dev)
+            torch.cuda.synchronize()
+            c = counts()
+        chosen = torch.zeros(GATE_H * GATE_W, dtype=torch.bool, device=dev)
+        chosen[edge_pixels(one, ecfg)] = True
+        chosen = chosen.reshape(GATE_H, GATE_W)
+        d_ssaa = float((edge - ssaa)[chosen].abs().max())
+        kept = bool(torch.equal(edge[~chosen], one[~chosen]))
+        ok = d_ssaa <= 1e-5 and kept and all(c[k] for k in kernels) and bool(chosen.any())
+        line = (f"phase aa ({GATE_W}x{GATE_H}, k={AA_K}, fused={fused}): "
+                f"{int(chosen.sum())} edge pixels re-rendered, max |edge AA - uniform SSAA| "
+                f"there {d_ssaa:.3g} (limit 1e-5), other pixels equal to the 1-spp frame: "
+                f"{kept}, launches {c}")
+        if fused == "auto":
+            cpu = render(gscene, demo_textures(), ecfg, device="cpu")
+            okc, frac, worst = golden_check(edge.cpu().numpy(), cpu.numpy())
+            ok = ok and okc
+            line += (f"; card vs CPU edge AA: {frac:.3%} pixels over 2e-3 (limit 1.5%), worst "
+                     f"interior |err| {worst:.4f} (limit 0.5)")
+        log(line + (" -> PASS" if ok else " -> FAIL"))
+        if not ok:
+            fail(f"edge AA at {GATE_W}x{GATE_H} (fused={fused})")
+        del one, ssaa, edge
+
+    # 11. edge AA of the 1080p demo frame ("ultra"), probe route ----------------
+    ucfg = cfg.with_aa_preset("ultra")
+    budget = min(W * H, ucfg.edge_budget_mult * (W + H))
+    with torch.no_grad():
+        base = render(scene, textures, cfg, device=dev)
+        n_edges = edge_pixels(base, dataclasses.replace(ucfg, edge_budget_mult=W * H)).numel()
+        reset_counts()
+        aa_img = rr._edge_aa(scene, textures, ucfg, base, dev)
+        torch.cuda.synchronize()
+        edge_launches = counts()
+        finite = bool(torch.isfinite(aa_img).all())
+        del base, aa_img
+        one_ms = cuda_ms(lambda: render(scene, textures, cfg, device=dev), AA_FRAMES)
+        aa_ms = cuda_ms(lambda: render(scene, textures, ucfg, device=dev), AA_FRAMES)
+        one_ms2 = cuda_ms(lambda: render(scene, textures, cfg, device=dev), AA_FRAMES)
+    left = max(0, n_edges - budget)
+    aa_1080 = dict(edge_pixels=n_edges, budget=budget, left_at_1spp=left,
+                   left_share=left / max(n_edges, 1), edge_rays=min(n_edges, budget) * AA_K ** 2,
+                   edge_pass_launches=edge_launches, frame_1spp_ms=[one_ms, one_ms2],
+                   frame_edge_aa_ms=aa_ms, ratio=aa_ms / ((one_ms + one_ms2) / 2))
+    log(f"phase aa 1080p ({W}x{H}, ultra, probe route): {json.dumps(aa_1080)}"
+        + (" -> PASS" if finite and edge_launches["step_probe"] else " -> FAIL"))
+    if not finite or not edge_launches["step_probe"]:
+        fail("1080p edge AA: not finite, or the edge pass launched no probe")
+
+    # 12. ray chunks ------------------------------------------------------------
+    ccfg = RenderConfig(width=GATE_W, height=GATE_H, iterations=5, extra_refraction_steps=6)
+    with torch.no_grad():
+        whole = render(gscene, textures, ccfg, device=dev)
+        reset_counts()
+        chunked = render(gscene, textures, dataclasses.replace(ccfg, ray_chunk=1024), device=dev)
+        torch.cuda.synchronize()
+        c = counts()
+    d_chunk = float((whole - chunked).abs().max())
+    ok = d_chunk <= 1e-6 and c["step_probe"] > 0
+    log(f"phase chunk ({GATE_W}x{GATE_H}, ray_chunk=1024): max |chunked - whole| {d_chunk:.3g} "
+        f"(limit 1e-6), launches {c} -> {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        fail("ray_chunk changes the image or launched no probe")
+
+    # 13. debug channels, card vs CPU ------------------------------------------
+    dcfg = RenderConfig(width=GATE_W, height=GATE_H, iterations=5, extra_refraction_steps=6)
+    for bounce in (0, 1):
+        reset_counts()
+        got = render_debug(gscene, textures, dcfg, bounce, device=dev)
+        torch.cuda.synchronize()
+        c = counts()
+        got = {k: v.cpu() for k, v in got.items()}
+        ref = render_debug(gscene, demo_textures(), dcfg, bounce, device="cpu")
+        both = torch.isfinite(got["t"]) & torch.isfinite(ref["t"])
+        rel_t = (got["t"] - ref["t"]).abs() / ref["t"].abs().clamp(min=1e-6)
+        differ = (got["type"] != ref["type"]) | (got["index"] != ref["index"])
+        tie = differ & both & (rel_t <= 1e-4)
+        torus = differ & ((got["type"] == TYPE_TORUS) | (ref["type"] == TYPE_TORUS))
+        # a silhouette ray that one side hits and the other misses (f32 root
+        # placement, as the kernel-vs-twin phases allow on a share of lanes)
+        edge = differ & (torch.isfinite(got["t"]) != torch.isfinite(ref["t"])) & ~torus
+        other = differ & ~tie & ~torus & ~edge
+        same = ~differ & both
+        plain = same & (ref["type"] != TYPE_TORUS)
+        t_err = float(rel_t[plain].max()) if plain.any() else 0.0
+        torus_t_err = float(rel_t[same & ~plain].max()) if (same & ~plain).any() else 0.0
+        n_lane = (got["normal"] - ref["normal"]).abs().amax(-1)
+        n_err = float(n_lane[plain].max()) if plain.any() else 0.0
+        # unit normals: 1e-4 on all but AGREE's share of the lanes, the kernel
+        # rows' ROW_ABS on every lane
+        n_over = plain & (n_lane > 1e-4)
+        n_over_types = sorted({int(v) for v in ref["type"][n_over]})
+        alive_diff = int((got["alive"] != ref["alive"]).sum())
+        need = ("nearest_hit",) + (("step_probe",) if bounce else ())
+        ok = (int(differ.sum()) <= 0.005 * differ.numel() and not other.any() and t_err <= 1e-4
+              and int(n_over.sum()) <= (1 - AGREE) * int(plain.sum()) + 1 and n_err <= ROW_ABS
+              and torus_t_err <= T_REL and alive_diff <= 0.005 * differ.numel()
+              and all(c[k] for k in need) and int(same.sum()) > 0)
+        log(f"phase debug ({GATE_W}x{GATE_H}, bounce {bounce}): {int(same.sum())} hit lanes "
+            f"agree on type and index; {int(differ.sum())} differ (limit 0.5%: {int(tie.sum())} "
+            f"t ties, {int(torus.sum())} involving the torus, {int(edge.sum())} silhouette "
+            f"hit/miss flips, {int(other.sum())} other, limit 0); max relative |t| error "
+            f"{t_err:.3g} (limit 1e-4; torus lanes {torus_t_err:.3g}, limit {T_REL}); max "
+            f"|normal| error {n_err:.3g} (limit {ROW_ABS}), over 1e-4 on {int(n_over.sum())} "
+            f"lanes of types {n_over_types} (limit {1 - AGREE:.1%} of {int(plain.sum())}); "
+            f"alive differs on {alive_diff} lanes; launches {c} -> {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"render_debug at bounce {bounce}: card and CPU disagree")
+
+    # 14. checkpoint and resume on the card, both routes --------------------------
+    ck_true, _ = build_scene(CK_W, CK_H)
+    ck_guess = unflatten_like(ck_true, {
+        "camera.pos": ck_true.camera.pos + torch.tensor([0.04, -0.03, 0.05]),
+        "spheres.pos": ck_true.spheres.pos + torch.tensor([0.06, 0.04, -0.05])})
+    ck_paths = ["camera.pos", "spheres.pos", "spheres.mat.color"]
+    checkpoint_rows = {}
+    for fused, kernels in (("off", ("nearest_hit", "shadow_sweep")), ("auto", ("step_probe",))):
+        kcfg = RenderConfig(width=CK_W, height=CK_H, iterations=5,
+                            extra_refraction_steps=auto_refraction_steps(ck_true), fused=fused)
+        with torch.no_grad():
+            ck_target = render(ck_true, textures, kcfg, device=dev)
+
+        def run(steps, **kw):
+            s, losses = optimize_scene(ck_guess, textures, kcfg, ck_target, steps=steps,
+                                       lr=lambda i: 5e-3 * 0.8 ** i, param_paths=ck_paths,
+                                       device=dev, **kw)
+            return {k: v for k, v in flatten_with_paths(s).items() if opt_mod._selected(k, ck_paths)}, losses
+
+        reset_counts()
+        p1, l1 = run(CK_STEPS)
+        torch.cuda.synchronize()
+        c = counts()
+        p2, l2 = run(CK_STEPS)
+        plain_same = l1 == l2 and all(torch.equal(p1[k], p2[k]) for k in p1)
+        spread = max(float((p1[k] - p2[k]).abs().max()) for k in p1)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "run.npz")
+            run(4, checkpoint_path=path, checkpoint_every=2)
+            arrays = load_arrays(path)[0]
+            saved_losses = [float(v) for v in arrays["losses"]]
+            # restore into fresh tensors and a fresh Adam: bit for bit the saved state
+            flat = flatten_with_paths(ck_guess.to(dev))
+            fresh = {k: torch.zeros_like(v).requires_grad_(True) for k, v in flat.items()
+                     if v.is_floating_point() and opt_mod._selected(k, ck_paths)}
+            adam = torch.optim.Adam(list(fresh.values()), lr=1.0, eps=1e-8)
+            step, _ = opt_mod._restore(path, fresh, adam)
+            restored = step == 4 and all(
+                np.array_equal(fresh[k].detach().cpu().numpy(), arrays[f"params.{k}"])
+                and all(np.array_equal(adam.state[fresh[k]][m].cpu().numpy(),
+                                       arrays[f"opt_state.{k}.{m}"])
+                        for m in ("exp_avg", "exp_avg_sq", "step"))
+                for k in fresh)
+            p3, l3 = run(CK_STEPS, checkpoint_path=path, checkpoint_every=2, resume=True)
+        resumed_same = l3 == l1 and all(torch.equal(p1[k], p3[k]) for k in p1)
+        resumed_err = max(float((p1[k] - p3[k]).abs().max()) for k in p1)
+        nondet = []
+        if not plain_same:
+            # name the ops with no deterministic CUDA implementation on this path
+            import warnings
+
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    run(1)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            nondet = sorted({str(w.message).split(" does not")[0] for w in caught
+                             if "deterministic" in str(w.message)})
+        ok = (restored and (resumed_same if plain_same else resumed_err <= 4 * spread)
+              and len(l3) == CK_STEPS and l3[:4] == saved_losses and all(c[k] for k in kernels)
+              and l1[-1] < l1[0])
+        checkpoint_rows[fused] = dict(plain_bit_identical=plain_same, plain_spread=spread,
+                                      resumed_bit_identical=resumed_same,
+                                      resumed_max_abs_diff=resumed_err, restored_bit_for_bit=restored,
+                                      nondeterministic_ops=nondet)
+        log(f"phase checkpoint ({CK_W}x{CK_H}, fused={fused}, {CK_STEPS} Adam steps): losses "
+            f"{[f'{v:.6g}' for v in l1]}; {json.dumps(checkpoint_rows[fused])}; launches of the "
+            f"first run {c} -> {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"checkpoint and resume on the card (fused={fused})")
+
+    # 15. the demo app at 1080p -------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "demo_1080p_ultra.png")
+        reset_counts()
+        t0 = time.perf_counter()
+        res = demo_app.main(["--width", str(W), "--height", str(H), "--frames", "3", "--aa",
+                             "ultra", "--fly", "w:1, wd:2:4:0", "--out", png])
+        demo_s = time.perf_counter() - t0
+        c = counts()
+        img = load_image(png)
+        png_bytes = os.path.getsize(png)
+    ok = (img.shape == (H, W, 4) and bool(torch.isfinite(res["img"]).all())
+          and tuple(res["img"].shape) == (H, W, 3) and c["step_probe"] > 0)
+    log(f"phase demo ({W}x{H}, 3 frames, --aa ultra, --fly): FPS per frame "
+        f"{[round(f, 3) for f in res['fps']]}, {demo_s:.1f} s in all, wrote a {png_bytes}-byte "
+        f"PNG that reads back as {img.shape}, launches {c} -> {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        fail("the demo app at 1080p")
+    del res, img
+
     # each kernel alone, on tables packed once, at the widths of earlier
     # records: the 1080p primary rays, in raster order, every lane live (the
     # probe, the sweep);
@@ -869,7 +1114,8 @@ def main():
         full_ms, full_by = bound(full[name][0], full[name][1] + tab)
         rays = n if name != "shadow_sweep" else ns
         if name == "step_probe":
-            extra.update(frame_ms=probe_frame_ms, frame_device_ms=probe_frame_device_ms)
+            extra.update(frame_ms=probe_frame_ms, frame_device_ms=probe_frame_device_ms,
+                         aa_1080p_edge_pass_launches=edge_launches["step_probe"])
         elif name == "nearest_hit":
             extra.update(eager_steps_ms=eager["ms"], eager_steps_device_ms=eager["device_ms"],
                          eager_steps_device_ms_every_lane=eager["every_lane_device_ms"],

@@ -28,6 +28,9 @@ from txr_torch.render.render import render
 from txr_torch.render.trace import RenderConfig
 from txr_torch.scene.types import float_leaves
 
+# one intra-op thread: parallel test workers share the cores
+torch.set_num_threads(1)
+
 PIXELS = {"scene": (tg.PX_SPHERE, tg.PX_FLOOR, tg.PX_TORUS, tg.PX_CONE),
           "scene2": (tg.PX_GLASS, tg.PX_GLASS2, tg.PX_RING2, tg.PX_PLANE)}
 CASES = {"scene": (tg.SCENE, tg.TEX, tg.CFG), "scene2": (tg.SCENE2, tg.TEX2, tg.CFG2)}

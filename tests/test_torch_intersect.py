@@ -33,6 +33,9 @@ from txr_torch.kernels.scene_table import pack_scene
 from txr_torch.render import intersect as tri
 from txr_torch.scene.types import TYPE_TORUS, float_leaves
 
+# one intra-op thread: parallel test workers share the cores
+torch.set_num_threads(1)
+
 R, P = 512, 3
 LANES = 2048
 

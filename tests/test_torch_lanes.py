@@ -53,6 +53,9 @@ from txr_torch.render.texture import with_mips
 from txr_torch.render.trace import RenderConfig, auto_refraction_steps
 from txr_torch.scene.types import float_leaves
 
+# one intra-op thread: parallel test workers share the cores
+torch.set_num_threads(1)
+
 W, H = 32, 18
 N_RANDOM = 1536
 

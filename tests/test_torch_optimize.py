@@ -36,6 +36,9 @@ from txr_torch.render.texture import TextureSet
 from txr_torch.render.trace import RenderConfig
 from txr_torch.scene.types import float_leaves
 
+# one intra-op thread: parallel test workers share the cores
+torch.set_num_threads(1)
+
 SIZE = 24
 TRUE = ((0.3, 0.2, 6.0), 1.0, (0.1, 0.2, 0.9), (0, 0, -5))
 GUESS = ((-0.4, -0.3, 6.5), 0.8, (0.5, 0.5, 0.5), (0.3, 0.2, -5.2))
@@ -73,11 +76,17 @@ def test_optimize_scene_matches_jax_and_descends(jax_side, fused, tmp_path):
     assert not recovered.spheres.pos.requires_grad
 
 
-def test_optimize_scene_refuses_checkpoints():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        optimize_scene(tinv.make_scene(*GUESS), TextureSet(), RenderConfig(width=4, height=4),
-                       np.zeros((4, 4, 3), np.float32), steps=1, checkpoint_path="x.npz",
-                       device="cpu")
+def test_optimize_scene_refuses_checkpoints(tmp_path):
+    """Checkpoint and resume are ported (tests/test_torch_checkpoint.py);
+    a resume refuses a checkpoint of another parameter set."""
+    path = str(tmp_path / "x.npz")
+    args = (tinv.make_scene(*GUESS), TextureSet(), RenderConfig(width=4, height=4),
+            np.zeros((4, 4, 3), np.float32))
+    optimize_scene(*args, steps=1, checkpoint_path=path, checkpoint_every=1, device="cpu",
+                   param_paths=["camera.pos"])
+    with pytest.raises(ValueError, match="checkpoint"):
+        optimize_scene(*args, steps=2, checkpoint_path=path, checkpoint_every=1, resume=True,
+                       device="cpu", param_paths=["spheres.pos"])
 
 
 def test_fused_route_grads_equal_eager():

@@ -13,6 +13,7 @@ relative; their other rows, and the shadow bits of rays that leave from
 them, follow that t and are not compared.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +28,9 @@ from txr_torch.kernels.step_probe import step_probe, unpack
 from txr_torch.render.texture import with_mips
 from txr_torch.scene.types import TYPE_TORUS
 
+# one intra-op thread: parallel test workers share the cores
+torch.set_num_threads(1)
+
 W, H, LANES = 32, 18, 2048
 TORUS_SLOT = 10      # demo slot order: 6 spheres, 2 surfaces, 2 boxes, the torus
 
@@ -34,7 +38,7 @@ TORUS_SLOT = 10      # demo slot order: 6 spheres, 2 surfaces, 2 boxes, the toru
 @pytest.fixture(scope="module")
 def probes():
     jscene, _ = jdemo.build_scene(W, H)
-    jtex = jwith_mips(jdemo.demo_textures())
+    jtex = jax.jit(jwith_mips)(jdemo.demo_textures())    # as render_jit builds it
     ro, rd = jprimary_rays(jscene.camera, W, H, 1)
     rng = np.random.default_rng(0)
     n = LANES - W * H

@@ -25,6 +25,9 @@ from txr_torch.render import render as rr
 from txr_torch.render.trace import RenderConfig
 from txr_torch.utils.image import golden_check
 
+# one intra-op thread: parallel test workers share the cores
+torch.set_num_threads(1)
+
 SMALL = dict(width=32, height=18, iterations=3, extra_refraction_steps=2)
 
 
@@ -94,12 +97,15 @@ def test_tiled_ray_order_matches(monkeypatch):
 
 
 def test_supersampling_modes():
-    """SSAA box-averages a supersampled frame; edge AA is not ported yet."""
+    """SSAA box-averages a supersampled frame; edge AA (the default mode)
+    re-renders some pixels of the 1-spp frame (tests/test_torch_aa.py)."""
     scene, _ = tdemo.build_scene(16, 8)
     tex = tdemo.demo_textures()
     cfg = RenderConfig(width=16, height=8, iterations=2, extra_refraction_steps=1,
                        supersample=2, aa_mode="ssaa")
     img = rr.render(scene, tex, cfg, device="cpu")
     assert img.shape == (8, 16, 3) and torch.isfinite(img).all()
-    with pytest.raises(NotImplementedError):
-        rr.render(scene, tex, dataclasses.replace(cfg, aa_mode="edge"), device="cpu")
+    edge = rr.render(scene, tex, dataclasses.replace(cfg, aa_mode="edge"), device="cpu")
+    one = rr.render(scene, tex, dataclasses.replace(cfg, supersample=1), device="cpu")
+    assert edge.shape == (8, 16, 3) and torch.isfinite(edge).all()
+    assert 0 < int((edge != one).any(-1).sum()) < 16 * 8

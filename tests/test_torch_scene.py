@@ -23,6 +23,9 @@ from txr_torch.geometry import quaternion as tq
 from txr_torch.render.render import render
 from txr_torch.render.trace import RenderConfig
 
+# one intra-op thread: parallel test workers share the cores
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

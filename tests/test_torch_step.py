@@ -17,6 +17,7 @@ fields exactly, and their normals, reflected rays and shadow bits follow
 the two hit points apart.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,6 +38,9 @@ from txr_torch.render import shading as tsh
 from txr_torch.render import trace as ttr
 from txr_torch.render.texture import with_mips
 from txr_torch.scene.types import TYPE_TORUS
+
+# one intra-op thread: parallel test workers share the cores
+torch.set_num_threads(1)
 
 W, H = 32, 18
 SHARE = 0.995
@@ -73,7 +77,7 @@ def _textures():
                   box=tex(16, 16), cubemap=tex(6, 8, 8))
     jtex = JTextureSet(sphere=tuple(map(jnp.asarray, arrays["sphere"])),
                        **{k: jnp.asarray(v) for k, v in arrays.items() if k != "sphere"})
-    return jwith_mips(jtex), with_mips(bridge.textures_from_numpy(**arrays))
+    return jax.jit(jwith_mips)(jtex), with_mips(bridge.textures_from_numpy(**arrays))
 
 
 @pytest.fixture(scope="module")
@@ -105,17 +109,21 @@ def _agree(got, want, name, lanes=None, tol=1e-4, share=SHARE):
     assert ok.mean() >= share, (name, ok.mean())
 
 
-def _hits(setup):
-    jscene, _, _, _, RO, RD = setup
-    t, ty, idx = jri.nearest_hit(jscene, jnp.asarray(RO), jnp.asarray(RD), True, "jnp")
-    return t, ty, idx
+@pytest.fixture(scope="module")
+def jax_hits(setup):
+    """JAX's nearest hit and hit info of the rays, each one compiled call."""
+    jscene, jtex, _, _, RO, RD = setup
+    t, ty, idx = jax.jit(lambda s, o, d: jri.nearest_hit(s, o, d, True, "jnp"))(
+        jscene, jnp.asarray(RO), jnp.asarray(RD))
+    hi = jax.jit(lambda s, tx, o, d, t, ty, idx: jtr.hit_info(s, tx, o, d, t, ty, idx, 1.0 / H,
+                                                               fast=False))(
+        jscene, jtex, jnp.asarray(RO), jnp.asarray(RD), t, ty, idx)
+    return t, ty, idx, hi
 
 
-def test_hit_info_matches_jax(setup):
+def test_hit_info_matches_jax(setup, jax_hits):
     jscene, jtex, tscene, ttex, RO, RD = setup
-    t, ty, idx = _hits(setup)
-    want = jtr.hit_info(jscene, jtex, jnp.asarray(RO), jnp.asarray(RD), t, ty, idx, 1.0 / H,
-                        fast=False)
+    t, ty, idx, want = jax_hits
     T = lambda a: torch.from_numpy(np.array(a))
     got = ttr.hit_info(tscene, ttex, T(RO), T(RD), T(t), T(ty).long(), T(idx).long(), 1.0 / H)
     textured = np.zeros(len(RO), bool)
@@ -129,15 +137,14 @@ def test_hit_info_matches_jax(setup):
     assert textured.sum() >= 100
 
 
-def test_calc_shade_matches_jax(setup):
+def test_calc_shade_matches_jax(setup, jax_hits):
     jscene, jtex, tscene, ttex, RO, RD = setup
-    t, ty, idx = _hits(setup)
-    hi = jtr.hit_info(jscene, jtex, jnp.asarray(RO), jnp.asarray(RD), t, ty, idx, 1.0 / H,
-                      fast=False)
+    hi = jax_hits[3]
     pt = hi["pt"] + hi["normal"] * hi["bias"][:, None]
     args = (pt, jnp.asarray(RD), hi["color"], hi["diffuse"], hi["specular"], hi["kd"],
             hi["ks"], hi["normal"])
-    want = jsh.calc_shade(jscene, jtex, *args, backend="jnp")
+    want = jax.jit(lambda s, tx, *a: jsh.calc_shade(s, tx, *a, backend="jnp"))(jscene, jtex,
+                                                                               *args)
     got = tsh.calc_shade(tscene, ttex, *(torch.from_numpy(np.array(a)) for a in args))
     _agree(got, want, "shade")
 
@@ -148,7 +155,7 @@ def _state(RO, RD):
 
 
 @pytest.mark.parametrize("mode", ["plain", "saved"])
-def test_step_matches_jax(setup, mode):
+def test_step_matches_jax(setup, jax_hits, mode):
     """One bounce step of step_jnp; saved mode gets the port's probe results
     (slot, t, shadow bits) on both sides."""
     jscene, jtex, tscene, ttex, RO, RD = setup
@@ -164,7 +171,7 @@ def test_step_matches_jax(setup, mode):
     want = jtr.step_jnp(jscene, jtex, jcfg, jst, saved=jsaved)
     got = ttr.step_jnp(tscene, ttex, tcfg, tst, saved=saved)
     assert set(got) == set(want)
-    torus = np.asarray(_hits(setup)[1]) == TYPE_TORUS
+    torus = np.asarray(jax_hits[1]) == TYPE_TORUS
     assert 0 < torus.sum() < 0.05 * len(torus)
     for k in want:
         _agree(got[k], want[k], k, lanes=~torus)

@@ -5,6 +5,7 @@ with the same float32 operations, so samples agree to 1e-6 absolute (a few
 ulps of reassociation).  Textures and sample points come from numpy seeds.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +13,9 @@ import torch
 
 from txr.render import texture as jtx
 from txr_torch.render import texture as ttx
+
+# one intra-op thread: parallel test workers share the cores
+torch.set_num_threads(1)
 
 SIZES = [(64, 128), (32, 64), (32, 32), (16, 256)]   # sphere ×2, box, ring
 ATOL = 1e-6
@@ -27,7 +31,7 @@ def _textures():
     t = ttx.TextureSet(sphere=(torch.from_numpy(texs[0]), torch.from_numpy(texs[1])),
                        box=torch.from_numpy(texs[2]), ring=torch.from_numpy(texs[3]),
                        cubemap=torch.from_numpy(cube))
-    return texs, jtx.with_mips(j), ttx.with_mips(t)
+    return texs, jax.jit(jtx.with_mips)(j), ttx.with_mips(t)    # as render_jit builds it
 
 
 @pytest.fixture(scope="module")
@@ -36,9 +40,9 @@ def sets():
 
 
 @pytest.mark.parametrize("k", range(len(SIZES)))
-def test_mip_levels_match_jax(k):
+def test_mip_levels_match_jax(sets, k):
     """Quantisation and the integer-exact 2×2 pyramid: bit-identical."""
-    tex = _textures()[0][k]
+    tex = sets[0][k]
     want = jtx._mip_levels(jnp.asarray(tex))
     got = ttx._mip_levels(torch.from_numpy(tex))
     assert len(got) == len(want)

@@ -4,9 +4,11 @@ image by gradient descent on the render.
 
     python -m txr_torch.apps.inverse --steps 200 [--size 64] [--device cpu]
         [--fused off] [--metrics steps.jsonl] [--out inverse.png]
+        [--checkpoint run.npz --checkpoint-every 10 [--resume]]
 
-Runs on CUDA unless ``--device cpu``.  Checkpoint and resume are not ported
-yet: their flags raise.
+Runs on CUDA unless ``--device cpu``.  With ``--checkpoint`` and
+``--checkpoint-every k`` the run's state is written every k steps and at
+the end; ``--resume`` continues a killed run from that file to ``--steps``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from txr_torch.render.render import render
 from txr_torch.render.texture import TextureSet
 from txr_torch.render.trace import RenderConfig
 from txr_torch.scene.factories import SceneBuilder
+from txr_torch.utils.image import save_png, side_by_side
 
 # optimise the camera quat through a normalise: rotate() follows the
 # reference (conjugate, not inverse — rt.frag:305-311), so a non-unit quat
@@ -51,9 +54,11 @@ def main(argv=None):
     p.add_argument("--fused", default="auto", choices=("auto", "on", "off"))
     p.add_argument("--metrics", default=None, help="one JSON record per step here")
     p.add_argument("--out", default=None, help="write target | recovered as a PNG here")
-    p.add_argument("--checkpoint", default=None)
-    p.add_argument("--checkpoint-every", type=int, default=0)
-    p.add_argument("--resume", action="store_true")
+    p.add_argument("--checkpoint", default=None, help="the run's state file (.npz)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="write the state every k steps and at the end")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from --checkpoint, if it exists, to --steps")
     args = p.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -85,13 +90,9 @@ def main(argv=None):
                        ("camera quat", target_scene.camera.quat, recovered.camera.quat)):
         print(f"{name:12s} true {show(a)}  recovered {show(b)}")
     if args.out:
-        from PIL import Image
-
         with torch.no_grad():
             final = render(recovered, tex, cfg, device=dev)
-        strip = torch.cat([target, torch.ones((args.size, 2, 3), device=dev), final], 1)
-        img = (np.clip(strip.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
-        Image.fromarray(img).save(args.out)
+        save_png(args.out, side_by_side(target, final, gap=2))
         print(f"wrote {args.out}  (left: target, right: recovered)")
     return losses
 

@@ -101,8 +101,15 @@ def ring_normal(q):
 
 
 def _safe_recip(v, big=1.0e30):
-    """1/v with exact zeros mapped to a huge same-sign value."""
-    return torch.where(v >= 0.0, 1.0, -1.0) / torch.clamp(v.abs(), min=1.0 / big)
+    """1/v with exact zeros mapped to a huge same-sign value: sign / max(|v|,
+    1/big), as txr/geometry/intersect.py computes it.  The lanes below 1/big
+    divide by a constant, so the backward makes no 0·inf (a NaN that the
+    max's backward would drop, but that autograd's anomaly check reports)."""
+    a = v.abs()
+    small = a < 1.0 / big
+    sign = torch.where(v >= 0.0, 1.0, -1.0)
+    return torch.where(small, sign / torch.full_like(a, 1.0 / big),
+                       sign / torch.where(small, 1.0, a))
 
 
 def box_t(ro, rd, pos, q, form):

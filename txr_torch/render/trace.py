@@ -52,6 +52,7 @@ from txr_torch.scene.types import (
     float_leaves,
     unflatten_like,
 )
+from txr_torch.utils.debug import program
 from txr_torch.utils.index import take
 
 
@@ -79,15 +80,35 @@ class RenderConfig:
     # "off": the eager body step_jnp on the nearest-hit and shadow kernels
     fused: str = "auto"
     refractive_glossy: bool = True    # getReflectedColor pass, rt.frag:787-802
-    # "edge" re-renders luma-edge pixels at supersample² (not ported yet);
-    # "ssaa" box-averages a uniformly supersampled frame
+    # rays per sequential trace() call (0 = the whole batch at once): bounds
+    # the peak per-ray working set of a frame and of its edge-AA pass
+    ray_chunk: int = 0
+    # "edge" renders 1 spp, then re-renders the luma-edge pixels at
+    # supersample² (render._edge_aa); "ssaa" box-averages a uniformly
+    # supersampled frame.  Both are differentiable; the edge mask is detached.
     aa_mode: str = "edge"
+    # luma edge-detect threshold (SMAA_THRESHOLD, SMAA.h:319-323)
+    edge_threshold: float = 0.02
+    # at most edge_budget_mult·(H+W) pixels re-render, the first ones in
+    # row-major order; edge pixels past the budget keep their 1-spp value
+    edge_budget_mult: int = 20
 
     @property
     def max_steps(self):
         if self.reflect_reduce_iteration:
             return self.iterations + self.extra_refraction_steps
         return self.iterations
+
+    def with_aa_preset(self, preset: str, mode: str = "edge") -> "RenderConfig":
+        """The reference's SMAA_PRESET_{LOW,MEDIUM,HIGH,ULTRA}
+        (SMAA_Builder.h:9-12) as a sub-sample factor k (``AA_PRESETS``):
+        mode "edge" re-renders the luma-edge pixels at k² spp, "ssaa"
+        supersamples every pixel k×."""
+        return dataclasses.replace(self, supersample=AA_PRESETS[preset.lower()], aa_mode=mode)
+
+
+# SMAA preset → supersampling factor ("low" barely thresholds: no AA)
+AA_PRESETS = {"off": 1, "low": 1, "medium": 2, "high": 3, "ultra": 4}
 
 
 def auto_refraction_steps(scene, cap: int = 6) -> int:
@@ -491,6 +512,7 @@ def _check_route(cfg):
         raise ValueError(f"RenderConfig.fused must be 'auto', 'on' or 'off', got {cfg.fused!r}")
 
 
+@program
 def trace(scene, textures, cfg: RenderConfig, ro, rd, device=None):
     """ro, rd [R,3] → RGB [R,3].  Scene, textures and rays move to
     ``device`` (CUDA unless the caller passes "cpu").  Differentiable in
