@@ -72,8 +72,29 @@ Phases, one line each:
  15. demo      apps.demo.main at 1920×1080, 3 frames, --aa ultra, a short
                --fly script, the last frame written as a PNG (in a
                temporary directory) and read back
-Every phase from 4 on counts kernel launches from zero around its own run
-and fails if a kernel of its path did not launch.
+ 16. texel determinism  48×27, 4 Adam steps on the sphere and box texture
+               contents, twice, on each route: losses and texels bit for
+               bit; the same with the former index_add_ backward, recorded
+ 17. dist world 1  a world of one rank in this process (nccl): the 1080p
+               render_sharded against render bit for bit; one
+               make_train_step step on the probe route (every float leaf)
+               against a plain render and backward of the same loss; the
+               frame's and the step's ms
+ 18. dist world 2  two ranks spawned on the one card (gloo): the same
+               checks on every rank, the ranks' ms
+ 19. ring      ring_nearest_hit over worlds of 2 and 4 on the one card
+               against the whole scene's nearest hit on the 1080p primary
+               rays (type and index on at least 1 − 1e-5 of the lanes, t
+               equal where they agree), the tie scene (8 identical spheres)
+               at index 0, nearest_hit launches per sweep, the sweep's ms
+ 20. entry     entry()'s render on the card, then dryrun_multichip(2)
+ 21. live      apps.live.main at 1920×1080 for 8 s on a free port of
+               127.0.0.1: one JPEG read from /stream decodes to
+               (1080, 1920, 3); its FPS
+The nearest-hit libraries of the ring's shard topologies are built in
+phase 1, before any rank is spawned.  Every phase from 4 on counts kernel
+launches from zero around its own run (a spawned rank counts its own and
+returns them) and fails if a kernel of its path did not launch.
 Then each kernel alone, one full-width launch on tables packed once, timed
 through its wrapper by CUDA events (``ms``, as earlier records) and by its
 device time in a torch.profiler trace (``device_ms``, the kernel alone), vs
@@ -110,6 +131,14 @@ KERNEL_REPS = 20
 AA_K = 4                  # the "ultra" preset's factor
 AA_FRAMES = 3
 CK_W, CK_H, CK_STEPS = 48, 27, 6
+TX_W, TX_H, TX_STEPS = 48, 27, 4
+DIST_REPS = 3
+RING_WORLDS = (2, 4)
+LIVE_SECONDS = 8.0
+# a sharded train step's gradient against a plain render and backward of
+# the same loss: ||g - g_ref|| <= DIST_REL ||g_ref|| + GRAD_ABS per leaf
+# (the same per-lane work, float32 sums over the rays in another order)
+DIST_REL = 1e-4
 
 # The kernel comparisons' thresholds (as tpu_smoke.py:101-108): f32 root
 # placement at silhouettes may legitimately flip a lane between kernel and
@@ -286,6 +315,121 @@ def probe_work(scene, buf, hdr, ro, rd, alive, f, i):
 
 def log(msg):
     print(msg, flush=True)
+
+
+# -- the ranks of the spawned worlds (phases dist world 2 and ring) -----------
+# Module-level, so a spawned rank imports them by name; each returns numpy
+# arrays and its own kernel launch counts.
+
+
+def keep_grads_sgd(params):
+    """An SGD optimiser (lr 1e-3) that keeps each step's gradients in
+    ``.grads``, so a train step's all_reduced gradients can be read."""
+    import torch
+
+    class KeepGrads(torch.optim.SGD):
+        def step(self, closure=None):
+            self.grads = [p.grad.detach().clone() for p in self.param_groups[0]["params"]]
+            return super().step(closure)
+
+    return KeepGrads(params, lr=1e-3)
+
+
+def host_ms(fn, reps):
+    """Mean host-clock ms of ``fn`` in every rank of the world, started
+    together after a barrier and fenced by a synchronize."""
+    import torch
+    import torch.distributed as dist
+
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def tie_scene():
+    """8 identical spheres: every ray that hits ties across all of them."""
+    from txr_torch.scene.factories import SceneBuilder
+
+    b = SceneBuilder(camera_pos=(0, 0, -5))
+    for _ in range(8):
+        b.add_sphere((0, 0, 3), 1.0, b.material((1, 0, 0)))
+    return b.build()
+
+
+def ring_part(device, width, height, reps):
+    """The ring sweep of the demo's primary rays and of the tie scene's
+    over a 1-axis mesh of every rank → dict(demo, tie: (t, type, index) as
+    numpy, launches of one demo sweep, ms of one sweep)."""
+    import torch
+
+    from txr_torch.apps.demo import build_scene
+    from txr_torch.dist.mesh import make_mesh, world
+    from txr_torch.dist.ring import ring_nearest_hit
+    from txr_torch.kernels import launch_counts, reset_launch_counts
+    from txr_torch.render.raygen import primary_rays
+
+    n, _ = world()
+    mesh = make_mesh((n,), axis_names=("ring",))
+    out = {}
+    for name, scene in (("demo", build_scene()[0]), ("tie", tie_scene())):
+        scene = scene.to(device)
+        ro, rd = primary_rays(scene.camera, width, height, 1)
+        reset_launch_counts()
+        res = ring_nearest_hit(scene, ro, rd, mesh, device=device)
+        torch.cuda.synchronize()
+        if name == "demo":
+            out["launches"] = launch_counts()
+            out["ms"] = host_ms(lambda: ring_nearest_hit(scene, ro, rd, mesh, device=device),
+                                reps)
+        out[name] = tuple(x.cpu().numpy() for x in res)
+    return out
+
+
+def dist_rank(device, width, height, reps):
+    """One rank of the world of 2: the 1080p sharded frame and one sharded
+    train step on the probe route (target 0.9 × the frame, every float
+    leaf, SGD), each timed; then the ring sweep."""
+    import torch
+
+    from txr_torch.apps.demo import build_scene, demo_textures
+    from txr_torch.dist.mesh import make_mesh
+    from txr_torch.dist.sharded import make_train_step, render_sharded
+    from txr_torch.kernels import launch_counts, reset_launch_counts
+    from txr_torch.render.texture import with_mips
+    from txr_torch.render.trace import RenderConfig, auto_refraction_steps
+
+    scene = build_scene()[0].to(device)
+    textures = with_mips(demo_textures().to(device))
+    cfg = RenderConfig(width=width, height=height, iterations=5,
+                       extra_refraction_steps=auto_refraction_steps(scene))
+    mesh = make_mesh()
+    out = {}
+    reset_launch_counts()
+    with torch.no_grad():
+        img = render_sharded(scene, textures, cfg, mesh, device=device)
+    torch.cuda.synchronize()
+    out["frame_launches"] = launch_counts()
+    with torch.no_grad():
+        out["frame_ms"] = host_ms(lambda: render_sharded(scene, textures, cfg, mesh,
+                                                         device=device), reps)
+    target = 0.9 * img
+    init, step = make_train_step(textures, cfg, mesh, keep_grads_sgd, device=device)
+    state = init(scene)
+    reset_launch_counts()
+    _, _, loss = step(scene, state, target)
+    torch.cuda.synchronize()
+    out["step_launches"] = launch_counts()
+    out["loss"] = float(loss)
+    out["grads"] = {p: g.cpu().numpy() for p, g in zip(state.params, state.optimizer.grads)}
+    out["step_ms"] = host_ms(lambda: step(scene, state, target), reps)
+    out["img"] = img.cpu().numpy()
+    out["ring"] = ring_part(device, width, height, reps)
+    return out
 
 
 def fail(msg):
@@ -507,26 +651,25 @@ def main():
                                            unflatten_like)
         from txr_torch.utils.checkpoint import load_arrays
         from txr_torch.utils.image import golden_check, load_image
+        from txr_torch.dist.ring import shard_topologies
+        from txr_torch.kernels import launch_counts as counts
+        from txr_torch.kernels import reset_launch_counts as reset_counts
     except ImportError as e:
         fail(f"the txr_torch package is not beside this script ({e})")
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
-    counters = dict(step_probe=sp.step_probe, nearest_hit=nh.launch, shadow_sweep=ss.launch)
-
-    def reset_counts():
-        for c in counters.values():
-            c.launches = 0
-
-    def counts():
-        return {k: c.launches for k, c in counters.items()}
-
     # 1. build -----------------------------------------------------------------
     scene, _ = build_scene(W, H)
     demo_top = build.topology(pack_scene(scene, None)[1])
     t0 = time.perf_counter()
-    built = build.build_all([("step_probe", ()), ("shadow_sweep", ()), ("nearest_hit", demo_top)])
+    # and the shard topologies of the ring phases (worlds of 2 and 4, the
+    # demo and the tie scene), so no spawned rank compiles
+    shard_tops = [lib for n in RING_WORLDS for sc in (scene, tie_scene())
+                  for lib in shard_topologies(sc, n)]
+    built = build.build_all([("step_probe", ()), ("shadow_sweep", ()), ("nearest_hit", demo_top)]
+                            + shard_tops)
     build_s = time.perf_counter() - t0
     log(f"phase build: {build_s:.1f} s for {len(built)} libraries (one nvcc each, in parallel)")
     for (name, defines), (path, nvcc_log) in built.items():
@@ -1071,6 +1214,299 @@ def main():
         fail("the demo app at 1080p")
     del res, img
 
+    # 16. texel determinism: a fit of texture contents, twice, both routes ----
+    from txr_torch.render.texture import TextureSet
+    from txr_torch.utils import index as index_mod
+
+    tx_scene = build_scene(TX_W, TX_H)[0].to(dev)
+    raw = demo_textures()
+    tx_true = [t.to(dev) for t in (*raw.sphere, raw.box)]
+    trng = np.random.default_rng(1)
+    tx_start = [(t * 0.8 + torch.from_numpy(trng.uniform(0.0, 0.1, tuple(t.shape))
+                                            .astype(np.float32)).to(dev)).clamp(0.0, 1.0)
+                for t in tx_true]
+
+    def texset(ts):
+        return TextureSet(sphere=tuple(ts[:3]), box=ts[3], ring=raw.ring.to(dev),
+                          cubemap=raw.cubemap.to(dev))
+
+    def texel_fit(tcfg, target):
+        ps = [t.clone().requires_grad_(True) for t in tx_start]
+        adam = torch.optim.Adam(ps, lr=1e-2, eps=1e-8)
+        losses = []
+        for _ in range(TX_STEPS):
+            adam.zero_grad(set_to_none=True)
+            loss = ((render(tx_scene, texset(ps), tcfg, device=dev) - target) ** 2).mean()
+            loss.backward()
+            adam.step()
+            losses.append(float(loss.detach()))
+        return losses, [p.detach().clone() for p in ps]
+
+    def same_runs(a, b):
+        return a[0] == b[0] and all(torch.equal(x, y) for x, y in zip(a[1], b[1])), max(
+            float((x - y).abs().max()) for x, y in zip(a[1], b[1]))
+
+    def index_add_sum(idx, g2, rows):
+        return g2.new_zeros((rows, g2.shape[1])).index_add_(0, idx, g2)
+
+    texel_rows = {}
+    for fused, kernels in (("off", ("nearest_hit", "shadow_sweep")), ("auto", ("step_probe",))):
+        tcfg = RenderConfig(width=TX_W, height=TX_H, iterations=5,
+                            extra_refraction_steps=auto_refraction_steps(tx_scene), fused=fused)
+        ph0 = time.perf_counter()
+        with torch.no_grad():
+            tx_target = render(tx_scene, texset(tx_true), tcfg, device=dev)
+        reset_counts()
+        a = texel_fit(tcfg, tx_target)
+        torch.cuda.synchronize()
+        c = counts()
+        same, spread = same_runs(a, texel_fit(tcfg, tx_target))
+        # the former backward, index_add_ (atomic adds on the card), for the record
+        kept, index_mod.segment_sum = index_mod.segment_sum, index_add_sum
+        try:
+            old_same, old_spread = same_runs(texel_fit(tcfg, tx_target),
+                                             texel_fit(tcfg, tx_target))
+        finally:
+            index_mod.segment_sum = kept
+        texel_rows[fused] = dict(bit_identical=same, max_abs_diff=spread,
+                                 index_add_bit_identical=old_same,
+                                 index_add_max_abs_diff=old_spread)
+        ok = same and a[0][-1] < a[0][0] and all(c[k] for k in kernels)
+        log(f"phase texel determinism ({TX_W}x{TX_H}, fused={fused}, {TX_STEPS} Adam steps on "
+            f"the sphere and box texture contents, two runs): losses "
+            f"{[f'{v:.6g}' for v in a[0]]}; {json.dumps(texel_rows[fused])}; launches {c}; "
+            f"{time.perf_counter() - ph0:.1f} s -> {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"a texture-content fit is not bit-identical from run to run (fused={fused})")
+
+    # 17. dist world 1: in process, nccl ---------------------------------------
+    import torch.distributed as tdist
+
+    from txr_torch.dist.mesh import default_backend, init_multihost, make_mesh, spawn_world
+    from txr_torch.dist.sharded import make_train_step, render_sharded
+
+    def dist_grads(got, ref):
+        """Leaves over DIST_REL, and the largest relative difference."""
+        bad, worst = [], 0.0
+        for k, r in ref.items():
+            r = torch.as_tensor(r)
+            d, nrm = float((torch.as_tensor(got[k]) - r).norm()), float(r.norm())
+            worst = max(worst, d / max(nrm, 1e-12) if d > GRAD_ABS else 0.0)
+            if d > DIST_REL * nrm + GRAD_ABS:
+                bad.append((k, d, nrm))
+        return bad, worst
+
+    ph0 = time.perf_counter()
+    dcfg = RenderConfig(width=W, height=H, iterations=5,
+                        extra_refraction_steps=auto_refraction_steps(scene))
+    with torch.no_grad():
+        frame_ref = render(scene, textures, dcfg, device=dev)
+    d_target = 0.9 * frame_ref
+    # the plain reference: render, then the backward of the same loss
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in float_leaves(scene).items()}
+    img = render(unflatten_like(scene, leaves), textures, dcfg, device=dev)
+    loss_ref = ((img - d_target) ** 2).mean()
+    g_ref = {k: torch.zeros(v.shape) if g is None else g.detach().cpu()
+             for (k, v), g in zip(leaves.items(), torch.autograd.grad(
+                 loss_ref, list(leaves.values()), allow_unused=True))}
+    loss_ref = float(loss_ref.detach())
+    del img, leaves
+    world_rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_multihost(init_method="file://" + os.path.join(tmp, "store"), world_size=1, rank=0,
+                       backend=default_backend([dev]))
+        try:
+            mesh = make_mesh()
+            reset_counts()
+            with torch.no_grad():
+                frame_1 = render_sharded(scene, textures, dcfg, mesh, device=dev)
+            torch.cuda.synchronize()
+            c_frame = counts()
+            with torch.no_grad():
+                frame_ms_1 = cuda_ms(lambda: render_sharded(scene, textures, dcfg, mesh,
+                                                            device=dev), DIST_REPS)
+            init_s, step_s = make_train_step(textures, dcfg, mesh, keep_grads_sgd, device=dev)
+            st = init_s(scene)
+            reset_counts()
+            _, _, loss_1 = step_s(scene, st, d_target)
+            torch.cuda.synchronize()
+            c_step = counts()
+            g_1 = dict(zip(st.params, (g.cpu() for g in st.optimizer.grads)))
+            step_ms_1 = cuda_ms(lambda: step_s(scene, st, d_target), DIST_REPS)
+            backend_1 = tdist.get_backend()
+        finally:
+            tdist.destroy_process_group()
+    equal_1 = bool(torch.equal(frame_1, frame_ref))
+    bad, worst = dist_grads(g_1, g_ref)
+    loss_rel = abs(float(loss_1) - loss_ref) / loss_ref
+    world_rows[1] = dict(backend=backend_1, frame_bit_identical=equal_1, frame_ms=frame_ms_1,
+                         step_ms=step_ms_1, loss=float(loss_1), loss_rel_diff=loss_rel,
+                         worst_grad_rel_diff=worst, frame_launches=c_frame, step_launches=c_step)
+    ok = (equal_1 and not bad and loss_rel <= 1e-6 and c_frame["step_probe"] > 0
+          and c_step["step_probe"] > 0)
+    log(f"phase dist world 1 ({W}x{H}, in process, {backend_1}): render_sharded vs render bit "
+        f"for bit: {equal_1}; one make_train_step step on the probe route (every float leaf) "
+        f"vs a plain render and backward of the same loss: loss {float(loss_1):.8g} vs "
+        f"{loss_ref:.8g} (relative {loss_rel:.3g}, limit 1e-6), worst leaf {worst:.3g} (limit "
+        f"{DIST_REL}); frame {frame_ms_1:.2f} ms, step {step_ms_1:.1f} ms (CUDA events, "
+        f"{DIST_REPS} reps); launches: frame {c_frame}, step {c_step}; "
+        f"{time.perf_counter() - ph0:.1f} s -> "
+        + ("PASS" if ok else f"FAIL {bad}"))
+    if not ok:
+        fail("dist world 1: the sharded frame or step disagrees with the plain one")
+    del frame_1, st
+
+    # 18. dist world 2: two ranks spawned on the one card ----------------------
+    ph0 = time.perf_counter()
+    ranks = spawn_world(2, dist_rank, W, H, DIST_REPS, device=dev)
+    ref_np = frame_ref.cpu().numpy()
+    equal_2 = all(np.array_equal(r["img"], ref_np) for r in ranks)
+    bad2, worst2 = [], 0.0
+    for r in ranks:
+        b, w_ = dist_grads(r["grads"], g_ref)
+        bad2 += b
+        worst2 = max(worst2, w_)
+    same_ranks = all(r["loss"] == ranks[0]["loss"] and all(
+        np.array_equal(r["grads"][k], ranks[0]["grads"][k]) for k in g_ref) for r in ranks)
+    loss_rel2 = max(abs(r["loss"] - loss_ref) / loss_ref for r in ranks)
+    world_rows[2] = dict(backend="gloo", frame_bit_identical=equal_2,
+                         frame_ms=max(r["frame_ms"] for r in ranks),
+                         step_ms=max(r["step_ms"] for r in ranks), loss=ranks[0]["loss"],
+                         loss_rel_diff=loss_rel2, worst_grad_rel_diff=worst2,
+                         ranks_identical=same_ranks,
+                         frame_launches=[r["frame_launches"] for r in ranks],
+                         step_launches=[r["step_launches"] for r in ranks])
+    ok = (equal_2 and not bad2 and loss_rel2 <= 1e-6 and same_ranks
+          and all(r["frame_launches"]["step_probe"] and r["step_launches"]["step_probe"]
+                  for r in ranks))
+    log(f"phase dist world 2 ({W}x{H}, two ranks on one card): {json.dumps(world_rows[2])}; "
+        f"frame and step ms: the slower rank's host clock over {DIST_REPS} reps after a "
+        f"barrier (world 1: {frame_ms_1:.2f} and {step_ms_1:.1f} ms); the world with its ring "
+        f"part {time.perf_counter() - ph0:.1f} s -> "
+        + ("PASS" if ok else f"FAIL {bad2}"))
+    if not ok:
+        fail("dist world 2: the sharded frame or step disagrees with the plain one")
+    del frame_ref, ref_np
+
+    # 19. ring: worlds of 2 and 4 against the whole scene's nearest hit -----------
+    ring_runs = {2: [r["ring"] for r in ranks]}
+    del ranks
+    ph0 = time.perf_counter()
+    ring_runs[4] = spawn_world(4, ring_part, W, H, DIST_REPS, device=dev)
+    ring4_s = time.perf_counter() - ph0
+    with torch.no_grad():
+        want = [x.cpu().numpy() for x in nearest_hit(scene, ro, rd, True, table)]
+        # the ring's miss encoding (JAX's): index -1 where nothing is hit
+        want[2] = np.where(want[1] < 0, -1, want[2])
+        tie = tie_scene().to(dev)
+        tro, trd = primary_rays(tie.camera, W, H)
+        tie_want = [x.cpu().numpy() for x in nearest_hit(tie, tro, trd)]
+    whole_ms = cuda_ms(lambda: nearest_hit(scene, ro, rd, True, table), KERNEL_REPS)
+    ring_rows = {}
+    for n, runs in ring_runs.items():
+        t1, ty1, i1 = runs[0]["demo"]
+        same_ranks = all(all(np.array_equal(a, b) for a, b in zip(r["demo"], runs[0]["demo"]))
+                         for r in runs)
+        agree = (ty1 == want[1]) & (i1 == want[2])
+        t_equal = bool(np.array_equal(t1[agree], want[0][agree]))
+        tt, tty, tidx = runs[0]["tie"]
+        hit = np.isfinite(tie_want[0])
+        tie_ok = (bool(hit.any()) and np.array_equal(tidx, np.where(hit, 0, -1))
+                  and np.array_equal(tt, tie_want[0]))
+        per_sweep = runs[0]["launches"]["nearest_hit"]
+        ring_rows[n] = dict(agree_share=float(agree.mean()), disagree=int((~agree).sum()),
+                            t_equal_where_agree=t_equal, tie_index0=tie_ok,
+                            ranks_identical=same_ranks, launches_per_sweep_per_rank=per_sweep,
+                            ms=max(r["ms"] for r in runs))
+        ok = (agree.mean() >= 1 - 1e-5 and t_equal and tie_ok and same_ranks
+              and all(r["launches"]["nearest_hit"] == n for r in runs))
+        log(f"phase ring (world of {n} on one card, {W}x{H} primary rays of the demo scene): "
+            f"{json.dumps(ring_rows[n])}; sweep ms: the slower rank's host clock over "
+            f"{DIST_REPS} reps (the whole scene's nearest_hit: {whole_ms:.3f} ms by CUDA "
+            f"events)" + (f"; the world of 4 {ring4_s:.1f} s" if n == 4 else "")
+            + f" -> {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"ring sweep over {n} ranks disagrees with the whole scene's nearest hit")
+    del ring_runs, want, tie_want
+
+    # 20. entry: entry() on the card, dryrun_multichip(2) ----------------------
+    from txr_torch import entry as entry_mod
+
+    ph0 = time.perf_counter()
+    reset_counts()
+    efn, eargs = entry_mod.entry()
+    eimg = efn(*eargs)
+    torch.cuda.synchronize()
+    c = counts()
+    dry = entry_mod.dryrun_multichip(2)
+    ok = (tuple(eimg.shape) == (108, 192, 3) and eimg.device == dev
+          and bool(torch.isfinite(eimg).all())
+          and c["step_probe"] > 0 and all(np.isfinite(r["loss"]) for r in dry)
+          and all(r["launches"]["step_probe"] and r["launches"]["nearest_hit"] for r in dry))
+    log(f"phase entry: entry() renders {tuple(eimg.shape)} on {eimg.device}, launches {c}; "
+        f"dryrun_multichip(2): {dry[0]['lines']}, launches per rank "
+        f"{[r['launches'] for r in dry]}; {time.perf_counter() - ph0:.1f} s -> "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        fail("the entry points")
+    del eimg
+
+    # 21. live: the MJPEG viewer at 1080p -----------------------------------------
+    import http.client
+    import io
+    import socket
+    import threading
+
+    from PIL import Image
+
+    from txr_torch.apps import live as live_app
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    live = {}
+    ph0 = time.perf_counter()
+    reset_counts()
+    runner = threading.Thread(target=lambda: live.update(res=live_app.main(
+        ["--width", str(W), "--height", str(H), "--port", str(port),
+         "--max-seconds", str(LIVE_SECONDS)])))
+    runner.start()
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+                conn.request("GET", "/stream")
+                break
+            except ConnectionRefusedError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.1)
+        resp = conn.getresponse()
+        while resp.readline().strip() != b"--frame":
+            pass
+        heads = {}
+        while line := resp.readline().strip():
+            k, v = line.decode().split(":", 1)
+            heads[k.strip().lower()] = v.strip()
+        jpg = resp.read(int(heads["content-length"]))
+        conn.close()
+    finally:
+        runner.join(LIVE_SECONDS + 120)
+    c = counts()
+    shape = np.asarray(Image.open(io.BytesIO(jpg))).shape
+    res = live.get("res")
+    ok = (not runner.is_alive() and res is not None and shape == (H, W, 3)
+          and res["frames"] > 0 and c["step_probe"] > 0)
+    log(f"phase live ({W}x{H}, {LIVE_SECONDS:.0f} s on 127.0.0.1:{port}): a {len(jpg)}-byte "
+        f"JPEG from /stream decodes to {shape}; "
+        + (f"{res['frames']} frames in {res['seconds']:.2f} s = {res['fps']:.3f} FPS"
+           if res else "no result") + f", launches {c}; {time.perf_counter() - ph0:.1f} s -> "
+        + ("PASS" if ok else "FAIL"))
+    if not ok:
+        fail("the live viewer")
+
     # each kernel alone, on tables packed once, at the widths of earlier
     # records: the 1080p primary rays, in raster order, every lane live (the
     # probe, the sweep);
@@ -1119,7 +1555,10 @@ def main():
         elif name == "nearest_hit":
             extra.update(eager_steps_ms=eager["ms"], eager_steps_device_ms=eager["device_ms"],
                          eager_steps_device_ms_every_lane=eager["every_lane_device_ms"],
-                         build_s_second_topology=build2_s)
+                         build_s_second_topology=build2_s,
+                         ring_launches_per_sweep_per_rank={
+                             n: row["launches_per_sweep_per_rank"]
+                             for n, row in ring_rows.items()})
         elif name == "shadow_sweep":
             every_ray = lambda: ss.launch(buf, hdr, so, sd, sdist)
             extra.update(ms_every_ray=cuda_ms(every_ray, KERNEL_REPS),
