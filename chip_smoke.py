@@ -91,6 +91,19 @@ Phases, one line each:
  21. live      apps.live.main at 1920×1080 for 8 s on a free port of
                127.0.0.1: one JPEG read from /stream decodes to
                (1080, 1920, 3); its FPS
+ 22. assets 8k  the demo at 45 s into its animation (jupiter and saturn in
+               view) with the reference's asset class: jupiter and saturn
+               made at 8192×4096 by the demo's generator, written as JPEGs
+               and read back through demo_textures(asset_dir) (a: times,
+               shapes); with_mips on the card, its time, peak memory and
+               bytes, bit for bit the CPU's pyramid (b); 96×54 card vs CPU
+               on both routes by the golden criterion (c); the 1080p frame
+               on both routes, 8k and the demo's own textures in turns
+               (d); the 1080p fwd+bwd on both routes with and without the
+               planets' contents in the gradient, in turns, and once with
+               the former segment sum, then two 2-step Adam fits of the
+               contents bit for bit (e); the 48×27 texture gradients, card
+               vs CPU, within 2e-2 of their norm (f)
 The nearest-hit libraries of the ring's shard topologies are built in
 phase 1, before any rank is spawned.  Every phase from 4 on counts kernel
 launches from zero around its own run (a spawned rank counts its own and
@@ -135,6 +148,13 @@ TX_W, TX_H, TX_STEPS = 48, 27, 4
 DIST_REPS = 3
 RING_WORLDS = (2, 4)
 LIVE_SECONDS = 8.0
+# the assets-8k phases: the reference's planet textures are 8192×4096 JPEGs;
+# the demo at ASSET_T seconds into its animation, where jupiter and saturn
+# are both in view (at 96×54, some 200 and 40 pixels)
+ASSET_H, ASSET_W = 4096, 8192
+ASSET_T = 45.0
+ASSET_JPEG_QUALITY = 90
+ASSET_FIT_STEPS = 2
 # a sharded train step's gradient against a plain render and backward of
 # the same loss: ||g - g_ref|| <= DIST_REL ||g_ref|| + GRAD_ABS per leaf
 # (the same per-lane work, float32 sums over the rays in another order)
@@ -220,6 +240,7 @@ def torus_ops(sec, o3, d3):
     """[(ops [N], crosses [N] bool)] of each torus test on rays o3, d3."""
     import torch
 
+    from txr_torch.geometry import torus as ttorus
     from txr_torch.kernels import primitives as prim
 
     TO = sec["toruses"]
@@ -227,7 +248,7 @@ def torus_ops(sec, o3, d3):
     for i in range(TO.shape[0]):
         lo, ld = prim._torus_local(TO[:, 0:3], TO[:, 3:7], i, o3, d3)
         cross = ~prim._torus_culled(lo, ld, TO[i, 7], TO[i, 8])
-        _, hit = prim._torus_solve(lo, ld, TO[i, 7], TO[i, 8])
+        _, hit = ttorus.torus_solve(lo, ld, TO[i, 7], TO[i, 8])
         CULL["lines"] += cross.numel()
         CULL["culled"] += int((~cross).sum())
         CULL["culled_hits"] += int((hit & ~cross).sum())
@@ -623,6 +644,351 @@ def without(group):
         v = getattr(group, f.name)
         kw[f.name] = without(v) if dataclasses.is_dataclass(v) else v[:0]
     return dataclasses.replace(group, **kw)
+
+
+def former_segment_sum(idx, g2, rows):
+    """The texel gradient's former segment sum, dense in the table's rows
+    (an arange, two binary searches and a length per row), kept to time it
+    beside the current one."""
+    import torch
+
+    sidx, perm = torch.sort(idx, stable=True)
+    r = torch.arange(rows, device=idx.device)
+    lengths = torch.searchsorted(sidx, r, right=True) - torch.searchsorted(sidx, r)
+    return torch.segment_reduce(g2.index_select(0, perm), "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+
+
+def write_8k_assets(asset_dir):
+    """jupiter.jpg and saturn.jpg at ASSET_H×ASSET_W, made by the demo's own
+    generator with its bands, colours and seeds, as RGB8 JPEGs (the
+    reference's format; alpha is 1) → {name: (generate s, encode s)}."""
+    from PIL import Image
+
+    from txr_torch.apps.demo import PLANETS, _banded_planet
+
+    out = {}
+    for name in ("jupiter", "saturn"):
+        t0 = time.perf_counter()
+        codes = np.round(_banded_planet(ASSET_H, ASSET_W, *PLANETS[name]).numpy()[..., :3]
+                         * 255.0).astype(np.uint8)
+        t1 = time.perf_counter()
+        Image.fromarray(codes, "RGB").save(os.path.join(asset_dir, f"{name}.jpg"),
+                                           quality=ASSET_JPEG_QUALITY)
+        out[name] = (t1 - t0, time.perf_counter() - t1)
+    return out
+
+
+def assets_8k(dev):
+    """Phases 22a-f: the demo with the reference's 8k planet textures, loaded
+    through ``demo_textures(asset_dir)``, on the card: the atlas and its mip
+    pyramid, the card against the CPU at 96×54, the 1080p forward frame and
+    the texture-content forward+backward on both routes, determinism of a
+    texture fit, and the texture gradients card against CPU at 48×27.
+    → a dict of the phases' numbers."""
+    import torch
+
+    from txr_torch.apps.demo import build_scene, demo_textures, update_scene
+    from txr_torch.kernels import launch_counts as counts
+    from txr_torch.kernels import reset_launch_counts as reset_counts
+    from txr_torch.render.intersect import nearest_hit
+    from txr_torch.render.raygen import primary_rays
+    from txr_torch.render.render import render
+    from txr_torch.render.texture import MIP_MIN_SIZE, TextureSet, with_mips
+    from txr_torch.render.trace import RenderConfig, auto_refraction_steps
+    from txr_torch.scene.types import float_leaves, unflatten_like
+    from txr_torch.utils import index as index_mod
+    from txr_torch.utils.image import golden_check
+
+    routes = (("off", ("nearest_hit", "shadow_sweep")), ("auto", ("step_probe",)))
+    gb = lambda b: b / 1e9
+    rec = {}
+    scene_cpu, handles = build_scene()
+    scene_cpu = update_scene(scene_cpu, handles, 1.0 / 30.0, ASSET_T)
+    ascene = scene_cpu.to(dev)
+
+    def cfg_of(w, h, fused):
+        return RenderConfig(width=w, height=h, iterations=5, fused=fused,
+                            extra_refraction_steps=auto_refraction_steps(scene_cpu))
+
+    def launched(c, kernels):
+        return all(c[k] for k in kernels)
+
+    # 22a. load: generate, write as JPEG, read back through the asset directory
+    ph0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        made = write_8k_assets(tmp)
+        jpg_bytes = {n: os.path.getsize(os.path.join(tmp, f"{n}.jpg")) for n in made}
+        t0 = time.perf_counter()
+        big = demo_textures(tmp)
+        load_s = time.perf_counter() - t0
+    shapes = [tuple(t.shape) for t in big.sphere]
+    ok = shapes[:2] == [(ASSET_H, ASSET_W, 4)] * 2 and all(
+        t.dtype == torch.float32 for t in big.sphere)
+    rec["load"] = dict(generate_and_encode_s={n: [round(v, 3) for v in st] for n, st in made.items()},
+                       jpeg_bytes=jpg_bytes, load_s=load_s, sphere_shapes=shapes)
+    log(f"phase assets 8k load: {json.dumps(rec['load'])}; "
+        f"{time.perf_counter() - ph0:.1f} s -> {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        fail("the 8k assets did not load at their size")
+
+    # 22b. atlas and mip pyramid on the card, against the CPU's bit for bit
+    ph0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    raw = big.to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big_tex = with_mips(raw)
+    torch.cuda.synchronize()
+    mips_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    t0 = time.perf_counter()
+    with_mips(raw)
+    torch.cuda.synchronize()
+    mips_s2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big_cpu = with_mips(big)
+    mips_cpu_s = time.perf_counter() - t0
+    atlas = big_tex.atlas
+    same = bool(torch.equal(atlas.texels.cpu(), big_cpu.atlas.texels))
+    raw_bytes = sum(t.numel() * 4 for t in (*raw.sphere, raw.box, raw.ring, raw.cubemap))
+    rec["atlas"] = dict(levels=atlas.levels.tolist(), dims=[list(d) for d in atlas.dims],
+                        texel_rows=atlas.texels.shape[0], atlas_gb=gb(atlas.texels.numel() * 4),
+                        raw_textures_gb=gb(raw_bytes), with_mips_s=[mips_s, mips_s2],
+                        with_mips_cpu_s=mips_cpu_s, peak_gb_over_start=gb(peak),
+                        bit_identical_to_cpu=same)
+    # 8192×4096 halves to 8×4 (MIP_MIN_SIZE stops it there): 11 levels
+    depth = int(np.log2(min(ASSET_H, ASSET_W) // MIP_MIN_SIZE)) + 1
+    ok = same and atlas.levels.tolist()[:2] == [depth, depth]
+    log(f"phase assets 8k atlas: {json.dumps(rec['atlas'])}; "
+        f"{time.perf_counter() - ph0:.1f} s -> {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the 8k atlas on the card is not the CPU's, or its pyramids are not {depth} deep")
+    small = with_mips(demo_textures().to(dev))
+
+    # 22c. card against CPU at 96×54, both routes (the golden criterion)
+    ph0 = time.perf_counter()
+    ro, rd = primary_rays(scene_cpu.camera, GATE_W, GATE_H)
+    with torch.no_grad():
+        _, ty, idx = nearest_hit(scene_cpu, ro, rd)
+    seen = {n: int(((ty == 0) & (idx == getattr(handles, n))).sum()) for n in ("jupiter", "saturn")}
+    rec["gate"] = dict(planet_pixels=seen)
+    for fused, kernels in routes:
+        gcfg = cfg_of(GATE_W, GATE_H, fused)
+        with torch.no_grad():
+            reset_counts()
+            got = render(ascene, big_tex, gcfg, device=dev)
+            torch.cuda.synchronize()
+            c = counts()
+            small_img = render(ascene, small, gcfg, device=dev)
+            want = render(scene_cpu, big_cpu, gcfg, device="cpu")
+        okc, frac, worst = golden_check(got.cpu().numpy(), want.numpy())
+        row = dict(over_2e3=frac, worst_interior=worst,
+                   max_abs_diff=float((got.cpu() - want).abs().max()),
+                   max_abs_diff_to_small_textures=float((got - small_img).abs().max()),
+                   launches=c)
+        rec["gate"][fused] = row
+        ok = okc and launched(c, kernels) and min(seen.values()) > 0
+        log(f"phase assets 8k gate ({GATE_W}x{GATE_H}, fused={fused}, the demo at t={ASSET_T} s, "
+            f"planet pixels {seen}): card vs CPU {frac:.3%} pixels over 2e-3 (limit 1.5%), worst "
+            f"interior |err| {worst:.4f} (limit 0.5); {json.dumps(row)} -> "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"8k textures at {GATE_W}x{GATE_H}: card and CPU disagree (fused={fused})")
+    rec["gate"]["s"] = time.perf_counter() - ph0
+
+    # 22d. 1080p forward, both routes: 8k and the demo's own textures in turns
+    ph0 = time.perf_counter()
+    rec["forward"] = {}
+    for fused, kernels in routes:
+        fcfg = cfg_of(W, H, fused)
+        with torch.no_grad():
+            reset_counts()
+            img = render(ascene, big_tex, fcfg, device=dev)
+            torch.cuda.synchronize()
+            c = counts()
+            finite = bool(torch.isfinite(img).all()) and tuple(img.shape) == (H, W, 3)
+            del img
+            render(ascene, small, fcfg, device=dev)
+            row = dict(ms_8k=[], ms_small=[], peak_gb_8k=0.0, peak_gb_small=0.0, launches=c)
+            for which in ("8k", "small", "small", "8k"):
+                tex = big_tex if which == "8k" else small
+                torch.cuda.reset_peak_memory_stats()
+                row[f"ms_{which}"].append(cuda_ms(lambda: render(ascene, tex, fcfg, device=dev),
+                                                  FRAMES))
+                row[f"peak_gb_{which}"] = max(row[f"peak_gb_{which}"],
+                                              gb(torch.cuda.max_memory_allocated()))
+        row["ratio"] = sum(row["ms_8k"]) / sum(row["ms_small"])
+        rec["forward"][fused] = row
+        ok = finite and launched(c, kernels)
+        log(f"phase assets 8k forward ({W}x{H}, fused={fused}, {FRAMES} frames per run by CUDA "
+            f"events, 8k, small, small, 8k): {json.dumps(row)} -> {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the 1080p frame with 8k textures (fused={fused})")
+    rec["forward"]["s"] = time.perf_counter() - ph0
+
+    # 22e. 1080p forward+backward: the 82 float leaves, with and without the
+    # planets' texture contents in the gradient, in turns; then two texture
+    # fits of ASSET_FIT_STEPS Adam steps, bit for bit
+    ph0 = time.perf_counter()
+    jup, sat = (t.detach().clone().requires_grad_(True) for t in raw.sphere[:2])
+
+    def texset(j, s_):
+        return TextureSet(sphere=(j, s_, raw.sphere[2]), ring=raw.ring, box=raw.box,
+                          cubemap=raw.cubemap)
+
+    def step(tcfg, with_tex):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in float_leaves(ascene).items()}
+        tex = with_mips(texset(jup, sat)) if with_tex else big_tex
+        img = render(unflatten_like(ascene, leaves), tex, tcfg, device=dev)
+        wrt = list(leaves.values()) + ([jup, sat] if with_tex else [])
+        return torch.autograd.grad((img * img).mean(), wrt, allow_unused=True)
+
+    raw_atlas_rows = big_tex.atlas.texels.shape[0]
+    rec["fwdbwd"] = {}
+    for fused, kernels in routes:
+        tcfg = cfg_of(W, H, fused)
+        reset_counts()
+        g = step(tcfg, True)
+        torch.cuda.synchronize()
+        c = counts()
+        finite = all(bool(torch.isfinite(x).all()) for x in g if x is not None)
+        tex_norm = [float(x.norm()) for x in g[-2:]]
+        del g
+        step(tcfg, False)
+        row = dict(ms_textures=[], ms_leaves_only=[], peak_gb_textures=0.0,
+                   peak_gb_leaves_only=0.0, texture_grad_norms=tex_norm, launches=c)
+        for which in ("textures", "leaves_only", "leaves_only", "textures"):
+            torch.cuda.reset_peak_memory_stats()
+            row[f"ms_{which}"].append(cuda_ms(lambda: step(tcfg, which == "textures"),
+                                              TRAIN_STEPS))
+            row[f"peak_gb_{which}"] = max(row[f"peak_gb_{which}"],
+                                          gb(torch.cuda.max_memory_allocated()))
+        row["ratio"] = sum(row["ms_textures"]) / sum(row["ms_leaves_only"])
+        # the former segment sum, dense in the table's 90 M rows, one step
+        kept, index_mod.segment_sum = index_mod.segment_sum, former_segment_sum
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            row["ms_textures_former_segment_sum"] = cuda_ms(lambda: step(tcfg, True), 1)
+            row["peak_gb_textures_former_segment_sum"] = gb(torch.cuda.max_memory_allocated())
+        finally:
+            index_mod.segment_sum = kept
+        # the segment sums of one step, recorded, then each timed alone (CUDA
+        # events), the current one and the former, by the table they sum into
+        calls = []
+
+        def record(idx, g2, rows):
+            calls.append((idx, g2, rows))
+            return kept(idx, g2, rows)
+
+        index_mod.segment_sum = record
+        try:
+            step(tcfg, True)
+        finally:
+            index_mod.segment_sum = kept
+        sums = {}
+        for idx, g2, rows in calls:
+            kind = "texels" if rows == raw_atlas_rows else f"{rows} rows"
+            e = sums.setdefault(kind, dict(calls=0, reads=0, ms=0.0, former_ms=0.0))
+            e["calls"] += 1
+            e["reads"] += idx.numel()
+            e["ms"] += cuda_ms(lambda: kept(idx, g2, rows), 3)
+            e["former_ms"] += cuda_ms(lambda: former_segment_sum(idx, g2, rows), 3)
+        row["segment_sums_of_a_step"] = sums
+        del calls
+        rec["fwdbwd"][fused] = row
+        ok = finite and launched(c, kernels) and min(tex_norm) > 0
+        log(f"phase assets 8k fwd+bwd ({W}x{H}, fused={fused}, {TRAIN_STEPS} steps per run by "
+            f"CUDA events; textures = the 82 float leaves and jupiter's and saturn's contents, "
+            f"leaves_only = the 82 alone; textures, leaves_only, leaves_only, textures): "
+            f"{json.dumps(row)} -> {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the 1080p texture-content fwd+bwd with 8k textures (fused={fused})")
+    with torch.no_grad():
+        target = render(ascene, big_tex, cfg_of(W, H, "auto"), device=dev)
+    start = [(0.8 * t + 0.1).detach() for t in raw.sphere[:2]]
+
+    def fit(tcfg):
+        ps = [t.clone().requires_grad_(True) for t in start]
+        adam = torch.optim.Adam(ps, lr=1e-2, eps=1e-8)
+        losses = []
+        for _ in range(ASSET_FIT_STEPS):
+            adam.zero_grad(set_to_none=True)
+            loss = ((render(ascene, with_mips(texset(*ps)), tcfg, device=dev) - target) ** 2
+                    ).mean()
+            loss.backward()
+            adam.step()
+            losses.append(float(loss.detach()))
+        return losses, ps
+
+    rec["fit"] = {}
+    for fused, kernels in routes:
+        tcfg = cfg_of(W, H, fused)
+        reset_counts()
+        l1, p1 = fit(tcfg)
+        c = counts()
+        l2, p2 = fit(tcfg)
+        same = l1 == l2 and all(torch.equal(a, b) for a, b in zip(p1, p2))
+        moved = max(float((a.detach() - b).abs().max()) for a, b in zip(p1, start))
+        rec["fit"][fused] = dict(losses=l1, bit_identical=same, texels_moved_max=moved,
+                                 launches=c)
+        del p1, p2
+        ok = same and moved > 0 and launched(c, kernels)
+        log(f"phase assets 8k fit ({W}x{H}, fused={fused}, {ASSET_FIT_STEPS} Adam steps on "
+            f"jupiter's and saturn's contents, twice): {json.dumps(rec['fit'][fused])} -> "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"a texture fit at 8k is not bit-identical from run to run (fused={fused})")
+    del jup, sat, start, target
+    rec["fwdbwd"]["s"] = time.perf_counter() - ph0
+
+    # 22f. texture gradients at 48×27, card against CPU.  The planets cover
+    # few pixels there and fewer whose 3×3 neighbours see the same primitive
+    # (phase grad's mask), so the loss takes every pixel whose primary ray
+    # hits the same primitive on the card and on the CPU: texel gradients
+    # carry no silhouette spike, only a hit that flips would move them
+    ph0 = time.perf_counter()
+    ro, rd = primary_rays(scene_cpu.camera, GRAD_W, GRAD_H)
+    with torch.no_grad():
+        _, ty, idx = nearest_hit(scene_cpu, ro, rd)
+        _, ty_d, idx_d = nearest_hit(ascene, ro.to(dev), rd.to(dev))
+        mask = ((ty == ty_d.cpu()) & (idx == idx_d.cpu())).reshape(GRAD_H, GRAD_W)
+    planet_px = {n: int((mask.reshape(-1) & (ty == 0) & (idx == getattr(handles, n))).sum())
+                 for n in ("jupiter", "saturn")}
+
+    def tex_grads(device, raw_, fused):
+        ts = [t.detach().clone().requires_grad_(True) for t in raw_.sphere[:2]]
+        tex = with_mips(TextureSet(sphere=(*ts, raw_.sphere[2]), ring=raw_.ring, box=raw_.box,
+                                   cubemap=raw_.cubemap))
+        s = ascene if device == dev else scene_cpu
+        img = render(s, tex, cfg_of(GRAD_W, GRAD_H, fused), device=device)
+        loss = (img * img * mask.to(img.device)[..., None]).sum() / (GRAD_W * GRAD_H)
+        return [g.cpu() for g in torch.autograd.grad(loss, ts)]
+
+    g_cpu = tex_grads(torch.device("cpu"), big, "off")
+    rec["grad"] = {}
+    for fused, kernels in routes:
+        reset_counts()
+        g_card = tex_grads(dev, raw, fused)
+        c = counts()
+        rel = [float((a - b).norm()) / max(float(b.norm()), 1e-30) for a, b in zip(g_card, g_cpu)]
+        norms = [float(b.norm()) for b in g_cpu]
+        rec["grad"][fused] = dict(relative_diff=rel, cpu_norms=norms, launches=c)
+        ok = (all(float((a - b).norm()) <= GRAD_REL * float(b.norm()) + GRAD_ABS
+                  for a, b in zip(g_card, g_cpu)) and min(norms) > 0 and launched(c, kernels))
+        log(f"phase assets 8k grad ({GRAD_W}x{GRAD_H}, {int(mask.sum())} pixels whose primary "
+            f"hit agrees, planet pixels among them {planet_px}, card "
+            f"fused={fused} vs CPU fused=off): jupiter's and saturn's texture gradients "
+            f"{json.dumps(rec['grad'][fused])} (limit {GRAD_REL} of the CPU's norm) -> "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"8k texture gradients: card and CPU disagree (fused={fused})")
+    rec["grad"]["s"] = time.perf_counter() - ph0
+    return rec
 
 
 def main():
@@ -1506,6 +1872,11 @@ def main():
         + ("PASS" if ok else "FAIL"))
     if not ok:
         fail("the live viewer")
+
+    # 22. assets 8k ----------------------------------------------------------------
+    ph0 = time.perf_counter()
+    assets_8k(dev)
+    log(f"phase assets 8k: {time.perf_counter() - ph0:.1f} s in all")
 
     # each kernel alone, on tables packed once, at the widths of earlier
     # records: the 1080p primary rays, in raster order, every lane live (the

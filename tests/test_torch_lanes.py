@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from txr_torch.apps import demo as tdemo
+from txr_torch.geometry import torus as ttorus
 from txr_torch.kernels import build as kbuild
 from txr_torch.kernels import nearest_hit as tnh
 from txr_torch.kernels import primitives as prim
@@ -108,7 +109,7 @@ def test_torus_cull_equals_uncut(pose):
     o3, d3 = _torus_rays(pos, form, np.random.default_rng(sorted(POSES).index(pose)))
     t, hit = prim._torus_test(pos[None], q[None], form[None], 0, o3, d3)
     lo, ld = prim._torus_local(pos[None], q[None], 0, o3, d3)
-    t0, hit0 = prim._torus_solve(lo, ld, form[0], form[1])
+    t0, hit0 = ttorus.torus_solve(lo, ld, form[0], form[1])
     culled = prim._torus_culled(lo, ld, form[0], form[1])
     assert torch.equal(hit, hit0)
     assert torch.equal(t[hit], t0[hit])

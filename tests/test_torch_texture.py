@@ -18,6 +18,9 @@ from txr_torch.render import texture as ttx
 torch.set_num_threads(1)
 
 SIZES = [(64, 128), (32, 64), (32, 32), (16, 256)]   # sphere ×2, box, ring
+# a deep pyramid: 9 levels (1024×2048 down to 4×8), sampled at LOD up to
+# 11, past its last level (the clamp)
+DEEP = (1024, 2048)
 ATOL = 1e-6
 
 
@@ -39,13 +42,18 @@ def sets():
     return _textures()
 
 
-@pytest.mark.parametrize("k", range(len(SIZES)))
-def test_mip_levels_match_jax(sets, k):
+@pytest.fixture(scope="module")
+def deep():
+    return np.random.default_rng(10).uniform(-0.1, 1.1, DEEP + (4,)).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", list(range(len(SIZES))) + ["deep"])
+def test_mip_levels_match_jax(sets, deep, k):
     """Quantisation and the integer-exact 2×2 pyramid: bit-identical."""
-    tex = sets[0][k]
+    tex = deep if k == "deep" else sets[0][k]
     want = jtx._mip_levels(jnp.asarray(tex))
     got = ttx._mip_levels(torch.from_numpy(tex))
-    assert len(got) == len(want)
+    assert len(got) == len(want) == (9 if k == "deep" else len(got))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
@@ -59,15 +67,20 @@ def test_atlas_slot_map_matches_jax(sets):
     assert tuple(t.atlas.levels.tolist()) == sa.pa.levels
 
 
-@pytest.mark.parametrize("trilinear", [False, True])
-def test_sample_atlas_matches_jax_sample_packed(sets, trilinear):
+@pytest.mark.parametrize("trilinear,is_deep", [(False, False), (True, False), (True, True)],
+                         ids=["False", "True", "deep"])
+def test_sample_atlas_matches_jax_sample_packed(sets, deep, trilinear, is_deep):
     texs, _, t = sets
+    if is_deep:
+        # the deep texture in a sphere slot beside a small one
+        texs = [deep, texs[1]]
+        t = ttx.with_mips(ttx.TextureSet(sphere=tuple(torch.from_numpy(x) for x in texs)))
     pa = jtx.build_packed_atlas([jnp.asarray(x) for x in texs])   # same slot order
     rng = np.random.default_rng(6)
     n = 4096
-    k = rng.integers(0, len(SIZES), n).astype(np.int32)
+    k = rng.integers(0, len(texs), n).astype(np.int32)
     uv = rng.uniform(-1.5, 2.5, (n, 2)).astype(np.float32)
-    lod = rng.uniform(-1.0, 8.0, n).astype(np.float32) if trilinear else None
+    lod = rng.uniform(-1.0, 11.0 if is_deep else 8.0, n).astype(np.float32) if trilinear else None
     want = jtx.sample_packed(pa, jnp.asarray(k), jnp.asarray(uv),
                              None if lod is None else jnp.asarray(lod))
     got = ttx.sample_atlas(t.atlas, torch.from_numpy(k).long(), torch.from_numpy(uv),

@@ -93,10 +93,17 @@ def _starfield_cubemap(size=256, density=4e-4, seed=3):
     return _rgba(cm)
 
 
+# each planet's bands, base and alternate colours and seed: _banded_planet's
+# arguments after its size
+PLANETS = {
+    "jupiter": (9, (0.80, 0.64, 0.48), (0.55, 0.38, 0.28), 1),
+    "saturn": (6, (0.85, 0.76, 0.55), (0.70, 0.60, 0.42), 2),
+    "mars": (2, (0.72, 0.35, 0.20), (0.48, 0.22, 0.14), 3),
+}
 _PROCEDURAL = {
-    "jupiter": lambda: _banded_planet(512, 1024, 9, (0.80, 0.64, 0.48), (0.55, 0.38, 0.28), 1),
-    "saturn": lambda: _banded_planet(512, 1024, 6, (0.85, 0.76, 0.55), (0.70, 0.60, 0.42), 2),
-    "mars": lambda: _banded_planet(256, 512, 2, (0.72, 0.35, 0.20), (0.48, 0.22, 0.14), 3),
+    "jupiter": lambda: _banded_planet(512, 1024, *PLANETS["jupiter"]),
+    "saturn": lambda: _banded_planet(512, 1024, *PLANETS["saturn"]),
+    "mars": lambda: _banded_planet(256, 512, *PLANETS["mars"]),
     "ring": lambda: _ring_texture(64, 1024),
     "box": lambda: _crate_texture(256, 256),
 }

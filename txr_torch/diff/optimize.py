@@ -37,6 +37,36 @@ def _selected(path, param_paths):
                                       for m in param_paths)
 
 
+def scene_grad(loss_fn, scene, *args, **kwargs):
+    """(value, grads) of ``loss_fn(scene, *args, **kwargs)``, a scalar
+    tensor, over the scene's float leaves (txr/diff/optimize.py:51-54).
+    ``grads`` is a scene of the same structure: each float leaf holds its
+    gradient (zeros where the loss does not reach it), each int or bool
+    leaf zeros, as ``jax.value_and_grad(allow_int=True)`` and the JAX
+    package's zeroing of int tangents give."""
+    flat = _flatten_with_paths(scene)
+    params = {p: v.detach().clone().requires_grad_(True) for p, v in flat.items()
+              if v.is_floating_point()}
+    val = loss_fn(_unflatten_like(scene, params), *args, **kwargs)
+    got = torch.autograd.grad(val, list(params.values()), allow_unused=True)
+    grads = {p: torch.zeros_like(v) for p, v in flat.items()}
+    grads.update({p: g for p, g in zip(params, got) if g is not None})
+    return val.detach(), _unflatten_like(scene, grads)
+
+
+def select_params(mask_paths):
+    """A filter of ``scene_grad``'s grads: leaves whose dotted path is one of
+    ``mask_paths`` or lies under one (e.g. ["spheres.pos", "camera"]) keep
+    their gradient, every other leaf becomes zeros (optimize.py:57-69)."""
+
+    def apply(grads):
+        return _unflatten_like(grads, {
+            p: g if _selected(p, mask_paths) else torch.zeros_like(g)
+            for p, g in _flatten_with_paths(grads).items()})
+
+    return apply
+
+
 def optimize_scene(scene, textures, cfg, target, steps=100, lr=1e-2, param_paths=None,
                    loss_kind="l2", optimizer=None, callback=None, param_transform=None,
                    metrics_path=None, device=None, checkpoint_path=None, checkpoint_every=0,

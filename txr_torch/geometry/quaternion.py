@@ -10,9 +10,17 @@ from __future__ import annotations
 
 import torch
 
+from txr_torch import resolve_device
+
 
 def _f32(x):
     return torch.as_tensor(x, dtype=torch.float32)
+
+
+def identity(dtype=torch.float32, device=None):
+    """The identity rotation (x, y, z, w) = (0, 0, 0, 1), on the card unless
+    ``device`` says otherwise."""
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=resolve_device(device))
 
 
 def conj(q):
@@ -75,3 +83,8 @@ def from_euler(pitch_yaw_roll):
         ],
         dim=-1,
     )
+
+
+def normalize(q):
+    """q / |q| along the last axis."""
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)

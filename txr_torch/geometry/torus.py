@@ -119,6 +119,54 @@ def _newton_refine(ts, coeffs, steps):
     return ts
 
 
+def torus_solve(lo, ld, R, r):
+    """The uncut Ferrari test on a local-frame ray, lo and ld (x, y, z)
+    tuples → (t, hit): the nearest root with the reference's DK acceptance
+    (rt.frag:478-486: |imag| ≤ 1e-3, real ≥ 0, 0 < t < 100), each real
+    root first refined by two Newton steps on the expanded quartic, the
+    winner polished on the factored one.  The probe and nearest-hit twins
+    call it with float32 scalar R, r; ``torus_t`` with tensors."""
+    ox, oy, oz = lo
+    dx, dy, dz = ld
+    A = dx * dx + dy * dy + dz * dz
+    Bq = 2.0 * (ox * dx + oy * dy + oz * dz)
+    R2 = R * R
+    Cq = ox * ox + oy * oy + oz * oz + R2 - r * r
+    a2 = dx * dx + dy * dy
+    b2 = 2.0 * (ox * dx + oy * dy)
+    c2 = ox * ox + oy * oy
+    coeffs = (
+        A * A,
+        2.0 * A * Bq,
+        Bq * Bq + 2.0 * A * Cq - 4.0 * R2 * a2,
+        2.0 * Bq * Cq - 4.0 * R2 * b2,
+        Cq * Cq - 4.0 * R2 * c2,
+    )
+    best = torch.full_like(ox, 1e4)
+    for rr, ri2 in ferrari_roots_tuple(*coeffs):
+        rr = torch.where(ri2 > 0.0, rr, _newton_refine(rr, coeffs, 2))
+        good = (ri2 <= 1e-6) & (rr >= 0.0)
+        best = torch.minimum(best, torch.where(good, rr, 1e4))
+    hit = (best > 0.0) & (best < 100.0)
+    # the winner's polish runs on the factored quartic (torus.py docstring)
+    t = newton_refine_factored(torch.where(hit, best, 0.0), (ox, oy, oz), (dx, dy, dz),
+                               R2, r * r, 2)
+    return t, hit
+
+
+def torus_t(ro, rd, pos, q, form):
+    """Nearest accepted root of each ray on each torus (torus.py:305):
+    ro, rd [R, 3]; pos [P, 3], q [P, 4], form [P, 2] (R, r) → t [R, P],
+    +inf on a miss.  The root is ``torus_solve``'s, found without a
+    gradient; autograd sees ``torus_polish_t``'s implicit-function
+    gradient, as in the JAX package."""
+    ro, rd = ro[..., None, :], rd[..., None, :]
+    with torch.no_grad():
+        lo, ld = quat.rotate(q, ro - pos), quat.rotate(q, rd)
+        t0, hit = torus_solve(lo.unbind(-1), ld.unbind(-1), form[..., 0], form[..., 1])
+    return torus_polish_t(ro, rd, pos, q, form, torch.where(hit, t0, float("inf")))
+
+
 def torus_polish_t(ro, rd, pos, q, form, t0):
     """Differentiable t of an already-found torus root (torus.py:338-355):
     POLISH_R Newton steps from the detached sweep root ``t0`` (+inf on a

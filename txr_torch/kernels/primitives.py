@@ -13,11 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from txr_torch.geometry.torus import (
-    _newton_refine,
-    ferrari_roots_tuple,
-    newton_refine_factored,
-)
+from txr_torch.geometry.torus import torus_solve
 
 BIG = 1.0e30
 INF_T = 3.0e38       # stand-in for +inf inside the kernel (f32 finite)
@@ -173,38 +169,8 @@ def _torus_test(tpos, tquat, tform, i, ro, rd):
     that ``_torus_culled`` rejects report no hit (the kernel skips their
     solve; here it runs on every lane and is masked)."""
     lo, ld = _torus_local(tpos, tquat, i, ro, rd)
-    t, hit = _torus_solve(lo, ld, tform[i, 0], tform[i, 1])
+    t, hit = torus_solve(lo, ld, tform[i, 0], tform[i, 1])
     return t, hit & ~_torus_culled(lo, ld, tform[i, 0], tform[i, 1])
-
-
-def _torus_solve(lo, ld, R, r):
-    """The uncut Ferrari test on a local-frame ray → (t, hit)."""
-    ox, oy, oz = lo
-    dx, dy, dz = ld
-    A = dx * dx + dy * dy + dz * dz
-    Bq = 2.0 * (ox * dx + oy * dy + oz * dz)
-    R2 = R * R
-    Cq = ox * ox + oy * oy + oz * oz + R2 - r * r
-    a2 = dx * dx + dy * dy
-    b2 = 2.0 * (ox * dx + oy * dy)
-    c2 = ox * ox + oy * oy
-    coeffs = (
-        A * A,
-        2.0 * A * Bq,
-        Bq * Bq + 2.0 * A * Cq - 4.0 * R2 * a2,
-        2.0 * Bq * Cq - 4.0 * R2 * b2,
-        Cq * Cq - 4.0 * R2 * c2,
-    )
-    best = torch.full_like(ox, 1e4)
-    for rr, ri2 in ferrari_roots_tuple(*coeffs):
-        rr = torch.where(ri2 > 0.0, rr, _newton_refine(rr, coeffs, 2))
-        good = (ri2 <= 1e-6) & (rr >= 0.0)
-        best = torch.minimum(best, torch.where(good, rr, 1e4))
-    hit = (best > 0.0) & (best < 100.0)
-    # the winner's polish runs on the factored quartic (torus.py docstring)
-    t = newton_refine_factored(torch.where(hit, best, 0.0), (ox, oy, oz), (dx, dy, dz),
-                               R2, r * r, 2)
-    return t, hit
 
 
 def _ring_test(rpos, rquat, rr1, rr2, i, ro, rd):

@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from txr_torch import resolve_device
 from txr_torch.geometry import quaternion as quat
 from txr_torch.utils.index import take
 
@@ -77,12 +78,23 @@ class TextureSet:
                           ring_alpha=mv(self.ring_alpha))
 
 
+def _unit(codes):
+    """Integer u8 codes k → k/255 in float32, correctly rounded, by a
+    256-entry table.  Not ``codes / 255.0``: PyTorch's CUDA kernel divides
+    by a scalar as a product with its reciprocal, which lands some k/255 one
+    ulp off, so the card's texels would not be the CPU's (or the JAX
+    package's).  The table's float64 quotients are within 2⁻⁵² of k/255,
+    far closer than any float32 rounding tie (k/255 repeats k's 8 bits)."""
+    lut = (torch.arange(256, dtype=torch.float64, device=codes.device) / 255.0).float()
+    return lut[codes.long()]
+
+
 def quantize_u8(x):
     """RGBA8 storage quantisation: values become exactly k/255 in f32, with
     a straight-through gradient so texture contents stay optimisable
     (texture.py:161-169).  x + (q − x) rounds to q exactly: the two are
     within 1/510 of each other, so q − x is exact (Sterbenz)."""
-    q = torch.round(torch.clamp(x.detach(), 0.0, 1.0) * 255.0) / 255.0
+    q = _unit(torch.round(torch.clamp(x.detach(), 0.0, 1.0) * 255.0))
     return x + (q - x.detach())
 
 
@@ -91,7 +103,7 @@ def mip_down_u8(a, b, c, d):
     codes — the only tie-proof formula (texture.py:172-184).  No gradient:
     ``_mip_levels`` routes it through the float mean."""
     si = sum(torch.round(x.detach() * 255.0).to(torch.int32) for x in (a, b, c, d))
-    return ((si + 2) >> 2).to(a.dtype) / 255.0
+    return _unit((si + 2) >> 2)
 
 
 def _mip_levels(tex):
@@ -208,10 +220,11 @@ def box_face_uv(pt, normal, box_pos, box_quat):
     return uv, w
 
 
-def _bilinear(table, base, H, W, uv, clamp):
-    """GL bilinear fetch from a flat [T, C] texel table: per ray, an H×W
-    image starting at row ``base``.  REPEAT wraps the taps; clamp-to-edge
-    clamps the sample point into the texel-centre span."""
+def _taps(base, H, W, uv, clamp):
+    """The GL bilinear footprint in a flat texel table of an H×W image per
+    ray starting at row ``base`` → (rows [4, ...] of the taps 00, 01, 10,
+    11, and the weights fu, fv [..., 1]).  REPEAT wraps the taps;
+    clamp-to-edge clamps the sample point into the texel-centre span."""
     dt = uv.dtype
     u = uv[..., 0] * W.to(dt) - 0.5
     v = uv[..., 1] * H.to(dt) - 0.5
@@ -235,32 +248,48 @@ def _bilinear(table, base, H, W, uv, clamp):
         cv0, cv1 = torch.remainder(v0, H), torch.remainder(v0 + 1, H)
     r0 = base + cv0 * W
     r1 = base + cv1 * W
-    c00, c01 = take(table, r0 + cu0), take(table, r0 + cu1)
-    c10, c11 = take(table, r1 + cu0), take(table, r1 + cu1)
+    return torch.stack([r0 + cu0, r0 + cu1, r1 + cu0, r1 + cu1]), fu, fv
+
+
+def _lerp(c, fu, fv):
+    """Bilinear blend of the four taps' texels c [4, ..., C]."""
+    c00, c01, c10, c11 = c
     top = c00 * (1.0 - fu) + c01 * fu
     bot = c10 * (1.0 - fu) + c11 * fu
     return top * (1.0 - fv) + bot * fv
 
 
+def _bilinear(table, base, H, W, uv, clamp):
+    """GL bilinear fetch from a flat [T, C] texel table (see ``_taps``):
+    one gather for the four taps."""
+    rows, fu, fv = _taps(base, H, W, uv, clamp)
+    return _lerp(take(table, rows), fu, fv)
+
+
 def sample_atlas(atlas: SceneAtlas, k, uv, lod=None):
     """textureLod on the scene atlas: k [R] slot, uv [R,2], lod [R] or None
     (level-0 bilinear) → RGBA [R,4].  Trilinear between floor(lod) and the
-    next level, lod clamped to [0, L−1−BLOCK_LOD_EPS] (sample_packed)."""
+    next level, lod clamped to [0, L−1−BLOCK_LOD_EPS] (sample_packed).  The
+    eight taps are one gather, so the texel table's gradient is one segment
+    sum and one dense write per sample, not eight."""
     L = atlas.levels[k]
     h0, w0 = atlas.h0[k], atlas.w0[k]
 
-    def fetch(level):
-        return _bilinear(atlas.texels, atlas.offset[k, level], h0 >> level,
-                         w0 >> level, uv, clamp=False)
-
     if lod is None:
-        return fetch(torch.zeros_like(k))
+        return _bilinear(atlas.texels, atlas.offset[k, 0], h0, w0, uv, clamp=False)
+
+    def taps(level):
+        return _taps(atlas.offset[k, level], h0 >> level, w0 >> level, uv, clamp=False)
+
     lmax = torch.clamp((L - 1).to(lod.dtype) - BLOCK_LOD_EPS, min=0.0)
     lod = torch.minimum(torch.clamp(lod, min=0.0), lmax)
     l0 = torch.floor(lod).to(torch.int64)
     l1 = torch.minimum(l0 + 1, L - 1)
     f = (lod - l0.to(lod.dtype))[..., None]
-    return fetch(l0) * (1.0 - f) + fetch(l1) * f
+    rows0, fu0, fv0 = taps(l0)
+    rows1, fu1, fv1 = taps(l1)
+    c = take(atlas.texels, torch.cat([rows0, rows1]))
+    return _lerp(c[:4], fu0, fv0) * (1.0 - f) + _lerp(c[4:], fu1, fv1) * f
 
 
 def sample_ring_alpha(textures: TextureSet, uv):
@@ -307,3 +336,15 @@ def sample_cubemap(textures: TextureSet, d):
     return _bilinear(cube.reshape(-1, cube.shape[-1]), face * (S * S), size, size,
                      uv, clamp=True)[..., :3]
 
+
+def checkerboard(h=256, w=256, c1=(1.0, 1.0, 1.0), c2=(0.2, 0.2, 0.2), tiles=8, device=None):
+    """Procedural [h, w, 4] texture of tiles × tiles squares in c1 and c2,
+    alpha 1 (texture.py:1088), on the card unless ``device`` says otherwise."""
+    dev = resolve_device(device)
+    yy, xx = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
+                            indexing="ij")
+    mask = ((yy * tiles // h + xx * tiles // w) % 2).to(torch.float32)[..., None]
+    c1 = torch.tensor(c1, dtype=torch.float32, device=dev)
+    c2 = torch.tensor(c2, dtype=torch.float32, device=dev)
+    rgb = c1 * (1 - mask) + c2 * mask
+    return torch.cat([rgb, torch.ones((h, w, 1), device=dev)], dim=-1)

@@ -159,7 +159,9 @@ def png_decode(data):
 
 def load_image(path, dtype=np.float32):
     """An image file → [H,W,4] float RGBA in [0,1] (for TextureSet).  PNGs
-    are decoded here; anything else through PIL."""
+    are decoded here; anything else through PIL.  Each u8 code k becomes
+    k/255 rounded once to ``dtype``, through a 256-entry table: no float64
+    copy of the image (an 8192×4096 texture's would take 1 GB)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == _PNG_SIG:
@@ -168,11 +170,12 @@ def load_image(path, dtype=np.float32):
             arr = np.concatenate([np.repeat(arr[..., :1], 3, axis=-1), arr[..., 1:]], -1)
         if arr.shape[-1] == 3:
             arr = np.concatenate([arr, np.full(arr.shape[:2] + (1,), 255, np.uint8)], -1)
-        return (arr.astype(np.float64) / 255.0).astype(dtype)
-    from PIL import Image
+    else:
+        from PIL import Image
 
-    img = np.asarray(Image.open(path).convert("RGBA"), np.float64) / 255.0
-    return img.astype(dtype)
+        with Image.open(path) as img:
+            arr = np.asarray(img.convert("RGBA"))
+    return (np.arange(256) / 255.0).astype(dtype)[arr]
 
 
 def side_by_side(*imgs, gap=4):

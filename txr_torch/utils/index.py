@@ -18,13 +18,23 @@ def segment_sum(idx, g2, rows):
     ``segment_reduce`` sums each run sequentially, so the result is the
     same on every call (an ``index_add_`` on CUDA adds with atomics in
     whatever order the threads arrive) and equals a sequential
-    ``index_add_`` on the CPU.  The run lengths come from two binary
-    searches of the sorted indices: no host synchronisation."""
+    ``index_add_`` on the CPU.  The work scales with the reads, n, not the
+    table: there is one segment per read, as long as its run where a run
+    starts and empty elsewhere (its length from a binary search of the
+    sorted indices for each read), and the run sums go to their rows in one
+    write of the output, every empty segment to a spare last row that is
+    dropped.  No host synchronisation, and no tensor of ``rows`` elements
+    but the output."""
+    n = idx.shape[0]
     sidx, perm = torch.sort(idx, stable=True)
-    r = torch.arange(rows, device=idx.device)
-    lengths = torch.searchsorted(sidx, r, right=True) - torch.searchsorted(sidx, r)
-    return torch.segment_reduce(g2.index_select(0, perm), "sum", lengths=lengths, axis=0,
-                                unsafe=True)
+    start = torch.ones(n, dtype=torch.bool, device=idx.device)
+    start[1:] = sidx[1:] != sidx[:-1]
+    run = torch.searchsorted(sidx, sidx, right=True) - torch.arange(n, device=idx.device)
+    sums = torch.segment_reduce(g2.index_select(0, perm), "sum",
+                                lengths=torch.where(start, run, 0), axis=0, unsafe=True)
+    out = g2.new_zeros((rows + 1, g2.shape[1]))
+    out.index_put_((torch.where(start, sidx, rows),), sums)
+    return out[:rows]
 
 
 class _Take(torch.autograd.Function):
