@@ -69,14 +69,16 @@ Phases, one line each:
                every 2 and a resume to 6 in a fresh optimiser; the
                restored parameters and Adam moments equal the saved ones
                bit for bit
- 15. demo      apps.demo.main at 1920×1080, 3 frames, --aa ultra, a short
+ 15. demo      apps.demo.main at 1920×1080, 5 frames, --aa ultra, a short
                --fly script, the last frame written as a PNG (in a
-               temporary directory) and read back
+               temporary directory) and read back; its frames come from
+               render_jit (the first captures the graphs), FPS per frame
  16. texel determinism  48×27, 4 Adam steps on the sphere and box texture
                contents, twice, on each route: losses and texels bit for
                bit; the same with the former index_add_ backward, recorded
  17. dist world 1  a world of one rank in this process (nccl): the 1080p
-               render_sharded against render bit for bit; one
+               render_sharded against render bit for bit, and
+               render_sharded_jit against render_sharded bit for bit; one
                make_train_step step on the probe route (every float leaf)
                against a plain render and backward of the same loss; the
                frame's and the step's ms
@@ -87,10 +89,11 @@ Phases, one line each:
                rays (type and index on at least 1 − 1e-5 of the lanes, t
                equal where they agree), the tie scene (8 identical spheres)
                at index 0, nearest_hit launches per sweep, the sweep's ms
- 20. entry     entry()'s render on the card, then dryrun_multichip(2)
+ 20. entry     entry()'s render (render_jit) on the card, then
+               dryrun_multichip(2)
  21. live      apps.live.main at 1920×1080 for 8 s on a free port of
                127.0.0.1: one JPEG read from /stream decodes to
-               (1080, 1920, 3); its FPS
+               (1080, 1920, 3); its FPS, its frames from render_jit
  22. assets 8k  the demo at 45 s into its animation (jupiter and saturn in
                view) with the reference's asset class: jupiter and saturn
                made at 8192×4096 by the demo's generator, written as JPEGs
@@ -104,6 +107,18 @@ Phases, one line each:
                the former segment sum, then two 2-step Adam fits of the
                contents bit for bit (e); the 48×27 texture gradients, card
                vs CPU, within 2e-2 of their norm (f)
+ 23. jit       render_jit, the frame in CUDA graphs (``jit_phase``): the
+               96×54 gate through it on both routes (a); at 1080p on both
+               routes, 1 spp and "ultra", render_jit against render bit for
+               bit at the start pose and at t = 45 s, the first call's
+               seconds, peak and held memory beside render's peak, the
+               launches of a replayed frame, frame ms of render and
+               render_jit in turns (CUDA events and host clock), and at
+               1 spp a profiler trace of one replayed frame (device ms,
+               busy share) whose kernel events equal the counted
+               launches (b); a call that wants a gradient raises (c); a
+               gather of 16-byte rows by index_select and along the
+               transposed table's columns, ms and bit for bit (d)
 The nearest-hit libraries of the ring's shard topologies are built in
 phase 1, before any rank is spawned.  Every phase from 4 on counts kernel
 launches from zero around its own run (a spawned rank counts its own and
@@ -143,6 +158,7 @@ OPT_STEPS = 5
 KERNEL_REPS = 20
 AA_K = 4                  # the "ultra" preset's factor
 AA_FRAMES = 3
+JIT_ROUNDS = 4            # phase jit: rounds of render, render_jit, render_jit, render
 CK_W, CK_H, CK_STEPS = 48, 27, 6
 TX_W, TX_H, TX_STEPS = 48, 27, 4
 DIST_REPS = 3
@@ -991,6 +1007,219 @@ def assets_8k(dev):
     return rec
 
 
+def profile_replay(fn, kernels):
+    """One call of ``fn`` (a render_jit frame whose graphs are captured)
+    under torch.profiler, after a warm call → dict(wall_ms, device_ms,
+    busy_share, device_events, counted, traced, kernel_ms): ``counted`` the
+    launches the wrappers count from zero around it, ``traced`` the device
+    events of each txr kernel in the trace, ``kernel_ms`` their device ms.
+    Up to three traces, until one holds every counted launch of
+    ``kernels`` (the tracer may drop device records)."""
+    import torch
+
+    from txr_torch.apps.profile_frame import KERNELS, device_events
+    from txr_torch.kernels import launch_counts, reset_launch_counts
+
+    fn()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        reset_launch_counts()
+        with torch.profiler.profile(activities=act) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        counted = launch_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            events = device_events(path)
+        traced = {k: sum(1 for n, _ in events if kname in n) for k, (_, kname) in KERNELS.items()}
+        kernel_ms = {k: sum(ms for n, ms in events if kname in n)
+                     for k, (_, kname) in KERNELS.items()}
+        device = sum(ms for _, ms in events)
+        out = dict(wall_ms=wall, device_ms=device, busy_share=device / wall,
+                   device_events=len(events), counted=counted, traced=traced,
+                   kernel_ms=kernel_ms)
+        if all(traced[k] == counted[k] for k in kernels):
+            return out
+    return out
+
+
+def gather_bench(dev):
+    """Phase 23d: a gather of 16-byte rows, as the texel, cubemap and
+    quaternion tables have, by ``index_select`` of whole rows (the former
+    ``utils/index.take``) and along the columns of the transposed table
+    (``take`` on the card), equal bit for bit: 16.6 M random
+    reads of a table the demo atlas' size (8 taps of 1080p's rays) and 2 M
+    of a 6-row table; ms by CUDA events over 10 calls each."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, rows, n in (("atlas", 1747504, 8 * W * H), ("six_rows", 6, W * H)):
+        table = torch.rand(rows, 4, device=dev, generator=g)
+        idx = torch.randint(0, rows, (n,), device=dev, generator=g)
+        whole = lambda: torch.index_select(table, 0, idx)
+        cols = lambda: torch.index_select(table.t(), 1, idx).t().contiguous()
+        out[name] = dict(reads=n, rows_ms=cuda_ms(whole, 10), columns_ms=cuda_ms(cols, 10),
+                         equal=bool(torch.equal(whole(), cols())))
+    return out
+
+
+def jit_phase(dev):
+    """Phases 23a-c: ``render_jit``, the frame captured in CUDA graphs and
+    replayed.  (a) the 96×54 gate through render_jit on both routes; (b) at
+    1080p on both routes, 1 spp and "ultra": render_jit against render bit
+    for bit at the start pose and at the pose of t = ASSET_T s (the second
+    call of the key), the first call's seconds (warm-up and capture), peak
+    and held device memory beside render's peak, the launches of a
+    replayed frame counted from zero and the lane capacity of each of its
+    steps, frame ms of render and render_jit in
+    turns (CUDA events and host clock), and at 1 spp a profiler trace of
+    one replayed frame whose kernel events must equal the counted
+    launches; (c) a call that wants a gradient raises.  → {kernel:
+    dict(jit_launches_per_frame, replay_device_ms_per_launch)} from the
+    1-spp traces."""
+    import torch
+
+    from txr_torch.apps.demo import build_scene, demo_textures, update_scene
+    from txr_torch.kernels import build
+    from txr_torch.kernels import launch_counts as counts
+    from txr_torch.kernels import reset_launch_counts as reset_counts
+    from txr_torch.kernels.scene_table import pack_scene
+    from txr_torch.render import render as rr
+    from txr_torch.render.render import clear_jit_cache, render, render_jit
+    from txr_torch.render.texture import with_mips
+    from txr_torch.render.trace import RenderConfig, auto_refraction_steps
+    from txr_torch.scene.types import unflatten_like
+    from txr_torch.utils.image import golden_check
+
+    routes = (("auto", ("step_probe",)), ("off", ("nearest_hit", "shadow_sweep")))
+    scene_cpu, handles = build_scene(W, H)
+    build.build_all([("step_probe", ()), ("shadow_sweep", ()),
+                     ("nearest_hit", build.topology(pack_scene(scene_cpu, None)[1]))])
+    scene = scene_cpu.to(dev)
+    later = update_scene(scene_cpu, handles, 1.0 / 30.0, ASSET_T).to(dev)
+    textures = with_mips(demo_textures().to(dev))
+
+    # 23a. the gate through render_jit
+    gscene, _ = build_scene(GATE_W, GATE_H)
+    want = np.load(os.path.join(ROOT, "txr", "ref", "gate_oracle.npz"))["img"]
+    for fused, kernels in routes:
+        gcfg = RenderConfig(width=GATE_W, height=GATE_H, iterations=5, extra_refraction_steps=6,
+                            fused=fused)
+        with torch.no_grad():
+            render_jit(gscene, textures, gcfg, device=dev)
+            reset_counts()
+            got = render_jit(gscene, textures, gcfg, device=dev).cpu().numpy()
+            c = counts()
+        ok, frac, worst = golden_check(got, want)
+        log(f"phase jit gate ({GATE_W}x{GATE_H}, fused={fused}, a replayed render_jit frame): "
+            f"{frac:.3%} pixels over 2e-3 (limit 1.5%), worst interior |err| {worst:.4f} "
+            f"(limit 0.5), launches {c} -> {'PASS' if ok and all(c[k] for k in kernels) else 'FAIL'}")
+        if not ok or not all(c[k] for k in kernels):
+            fail(f"render_jit gate (fused={fused})")
+    clear_jit_cache()
+
+    # 23b. 1080p, both routes, 1 spp and ultra
+    base = RenderConfig(width=W, height=H, iterations=5,
+                        extra_refraction_steps=auto_refraction_steps(scene_cpu))
+    replay = {}
+    for fused, kernels in routes:
+        for aa in ("1spp", "ultra"):
+            ph0 = time.perf_counter()
+            cfg = dataclasses.replace(base, fused=fused)
+            cfg = cfg.with_aa_preset("ultra") if aa == "ultra" else cfg
+
+            def run_r(s=scene):
+                return render(s, textures, cfg, device=dev)
+
+            def run_j(s=scene):
+                return render_jit(s, textures, cfg, device=dev)
+
+            row = {}
+            with torch.no_grad():
+                clear_jit_cache()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+                t0 = time.perf_counter()
+                run_j()
+                torch.cuda.synchronize()
+                row["first_call_s"] = time.perf_counter() - t0
+                row["jit_peak_gb"] = (torch.cuda.max_memory_allocated() - a0) / 1e9
+                row["jit_held_reserved_gb"] = (torch.cuda.memory_reserved() - r0) / 1e9
+                torch.cuda.reset_peak_memory_stats()
+                a1 = torch.cuda.memory_allocated()
+                run_r()
+                torch.cuda.synchronize()
+                row["render_peak_gb"] = (torch.cuda.max_memory_allocated() - a1) / 1e9
+                for pose, s in (("start", scene), (f"t={ASSET_T:g}s", later)):
+                    got, ref = run_j(s), run_r(s)
+                    row[pose] = dict(bit_for_bit=bool(torch.equal(got, ref)),
+                                     max_abs_diff=float((got - ref).abs().max()),
+                                     pixels_differing=int((got != ref).any(-1).sum()))
+                    del got, ref
+                reset_counts()
+                run_j()
+                torch.cuda.synchronize()
+                row["launches_per_replay"] = counts()
+                (frame,) = rr._FRAMES.values()
+                row["capacities_stepped"] = [u.steps_run for p in frame.programs
+                                             for u in p.units.values()]
+                times = dict(render_ms=[], jit_ms=[], render_wall_ms=[], jit_wall_ms=[])
+                for _ in range(JIT_ROUNDS):
+                    for fn, name in ((run_r, "render"), (run_j, "jit"), (run_j, "jit"),
+                                     (run_r, "render")):
+                        t0 = time.perf_counter()
+                        times[f"{name}_ms"].append(cuda_ms(fn, 1))
+                        times[f"{name}_wall_ms"].append((time.perf_counter() - t0) * 1e3)
+                row.update(times)
+                if aa == "1spp":
+                    prof = profile_replay(run_j, kernels)
+                    row["profile"] = prof
+                    for k in kernels:
+                        replay[k] = dict(jit_launches_per_frame=prof["counted"][k],
+                                         replay_device_ms_per_launch=(
+                                             prof["kernel_ms"][k] / max(prof["traced"][k], 1)))
+            ok = (all(row[p]["bit_for_bit"] for p in ("start", f"t={ASSET_T:g}s"))
+                  and all(row["launches_per_replay"][k] for k in kernels)
+                  and ("profile" not in row
+                       or all(row["profile"]["traced"][k] == row["profile"]["counted"][k]
+                              for k in kernels)))
+            log(f"phase jit 1080p ({W}x{H}, fused={fused}, {aa}): {json.dumps(row)}; "
+                f"{time.perf_counter() - ph0:.1f} s -> {'PASS' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"render_jit at 1080p (fused={fused}, {aa}): not bit for bit render's "
+                     "image, a kernel not launched, or a trace that disagrees with the counts")
+    clear_jit_cache()
+    torch.cuda.empty_cache()
+
+    # 23c. a call that wants a gradient
+    pos = scene.spheres.pos.clone().requires_grad_(True)
+    wants = unflatten_like(scene, {"spheres.pos": pos})
+    try:
+        render_jit(wants, textures, base, device=dev)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    log(f"phase jit grad: render_jit with spheres.pos requiring grad raised: {raised!r} -> "
+        f"{'PASS' if raised else 'FAIL'}")
+    if not raised:
+        fail("render_jit took a call that wants a gradient")
+
+    # 23d. the gather of 16-byte rows
+    gb = gather_bench(dev)
+    log(f"phase jit gather: {json.dumps(gb)} -> "
+        f"{'PASS' if all(r['equal'] for r in gb.values()) else 'FAIL'}")
+    if not all(r["equal"] for r in gb.values()):
+        fail("a gather along the transposed table's columns differs from index_select")
+    return replay
+
+
 def main():
     import torch
 
@@ -1010,7 +1239,7 @@ def main():
         from txr_torch.render.intersect import nearest_hit
         from txr_torch.render.raygen import primary_rays
         from txr_torch.render import render as rr
-        from txr_torch.render.render import edge_pixels, render, render_debug
+        from txr_torch.render.render import clear_jit_cache, edge_pixels, render, render_debug
         from txr_torch.render.texture import with_mips
         from txr_torch.render.trace import RenderConfig, auto_refraction_steps
         from txr_torch.scene.types import (TYPE_TORUS, flatten_with_paths, float_leaves,
@@ -1565,7 +1794,7 @@ def main():
         png = os.path.join(tmp, "demo_1080p_ultra.png")
         reset_counts()
         t0 = time.perf_counter()
-        res = demo_app.main(["--width", str(W), "--height", str(H), "--frames", "3", "--aa",
+        res = demo_app.main(["--width", str(W), "--height", str(H), "--frames", "5", "--aa",
                              "ultra", "--fly", "w:1, wd:2:4:0", "--out", png])
         demo_s = time.perf_counter() - t0
         c = counts()
@@ -1573,12 +1802,14 @@ def main():
         png_bytes = os.path.getsize(png)
     ok = (img.shape == (H, W, 4) and bool(torch.isfinite(res["img"]).all())
           and tuple(res["img"].shape) == (H, W, 3) and c["step_probe"] > 0)
-    log(f"phase demo ({W}x{H}, 3 frames, --aa ultra, --fly): FPS per frame "
-        f"{[round(f, 3) for f in res['fps']]}, {demo_s:.1f} s in all, wrote a {png_bytes}-byte "
-        f"PNG that reads back as {img.shape}, launches {c} -> {'PASS' if ok else 'FAIL'}")
+    log(f"phase demo ({W}x{H}, 5 frames, --aa ultra, --fly): FPS per frame by render_jit "
+        f"(frame 0 captures its graphs) {[round(f, 3) for f in res['fps']]}, {demo_s:.1f} s in "
+        f"all, wrote a {png_bytes}-byte PNG that reads back as {img.shape}, launches {c} -> "
+        f"{'PASS' if ok else 'FAIL'}")
     if not ok:
         fail("the demo app at 1080p")
     del res, img
+    clear_jit_cache()
 
     # 16. texel determinism: a fit of texture contents, twice, both routes ----
     from txr_torch.render.texture import TextureSet
@@ -1649,7 +1880,7 @@ def main():
     import torch.distributed as tdist
 
     from txr_torch.dist.mesh import default_backend, init_multihost, make_mesh, spawn_world
-    from txr_torch.dist.sharded import make_train_step, render_sharded
+    from txr_torch.dist.sharded import make_train_step, render_sharded, render_sharded_jit
 
     def dist_grads(got, ref):
         """Leaves over DIST_REL, and the largest relative difference."""
@@ -1692,6 +1923,14 @@ def main():
             with torch.no_grad():
                 frame_ms_1 = cuda_ms(lambda: render_sharded(scene, textures, dcfg, mesh,
                                                             device=dev), DIST_REPS)
+                render_sharded_jit(scene, textures, dcfg, mesh, device=dev)
+                reset_counts()
+                frame_1j = render_sharded_jit(scene, textures, dcfg, mesh, device=dev)
+                torch.cuda.synchronize()
+                c_jit = counts()
+                jit_ms_1 = cuda_ms(lambda: render_sharded_jit(scene, textures, dcfg, mesh,
+                                                              device=dev), DIST_REPS)
+            clear_jit_cache()
             init_s, step_s = make_train_step(textures, dcfg, mesh, keep_grads_sgd, device=dev)
             st = init_s(scene)
             reset_counts()
@@ -1704,15 +1943,20 @@ def main():
         finally:
             tdist.destroy_process_group()
     equal_1 = bool(torch.equal(frame_1, frame_ref))
+    equal_1j = bool(torch.equal(frame_1j, frame_1))
     bad, worst = dist_grads(g_1, g_ref)
     loss_rel = abs(float(loss_1) - loss_ref) / loss_ref
     world_rows[1] = dict(backend=backend_1, frame_bit_identical=equal_1, frame_ms=frame_ms_1,
                          step_ms=step_ms_1, loss=float(loss_1), loss_rel_diff=loss_rel,
-                         worst_grad_rel_diff=worst, frame_launches=c_frame, step_launches=c_step)
-    ok = (equal_1 and not bad and loss_rel <= 1e-6 and c_frame["step_probe"] > 0
-          and c_step["step_probe"] > 0)
+                         worst_grad_rel_diff=worst, frame_launches=c_frame, step_launches=c_step,
+                         jit_frame_bit_identical=equal_1j, jit_frame_ms=jit_ms_1,
+                         jit_frame_launches=c_jit)
+    ok = (equal_1 and equal_1j and not bad and loss_rel <= 1e-6 and c_frame["step_probe"] > 0
+          and c_step["step_probe"] > 0 and c_jit["step_probe"] > 0)
     log(f"phase dist world 1 ({W}x{H}, in process, {backend_1}): render_sharded vs render bit "
-        f"for bit: {equal_1}; one make_train_step step on the probe route (every float leaf) "
+        f"for bit: {equal_1}; render_sharded_jit (replayed) vs render_sharded bit for bit: "
+        f"{equal_1j}, {jit_ms_1:.2f} ms a frame, launches {c_jit}; "
+        f"one make_train_step step on the probe route (every float leaf) "
         f"vs a plain render and backward of the same loss: loss {float(loss_1):.8g} vs "
         f"{loss_ref:.8g} (relative {loss_rel:.3g}, limit 1e-6), worst leaf {worst:.3g} (limit "
         f"{DIST_REL}); frame {frame_ms_1:.2f} ms, step {step_ms_1:.1f} ms (CUDA events, "
@@ -1721,7 +1965,7 @@ def main():
         + ("PASS" if ok else f"FAIL {bad}"))
     if not ok:
         fail("dist world 1: the sharded frame or step disagrees with the plain one")
-    del frame_1, st
+    del frame_1, frame_1j, st
 
     # 18. dist world 2: two ranks spawned on the one card ----------------------
     ph0 = time.perf_counter()
@@ -1817,6 +2061,7 @@ def main():
     if not ok:
         fail("the entry points")
     del eimg
+    clear_jit_cache()
 
     # 21. live: the MJPEG viewer at 1080p -----------------------------------------
     import http.client
@@ -1867,16 +2112,22 @@ def main():
           and res["frames"] > 0 and c["step_probe"] > 0)
     log(f"phase live ({W}x{H}, {LIVE_SECONDS:.0f} s on 127.0.0.1:{port}): a {len(jpg)}-byte "
         f"JPEG from /stream decodes to {shape}; "
-        + (f"{res['frames']} frames in {res['seconds']:.2f} s = {res['fps']:.3f} FPS"
+        + (f"{res['frames']} frames in {res['seconds']:.2f} s = {res['fps']:.3f} FPS by render_jit"
            if res else "no result") + f", launches {c}; {time.perf_counter() - ph0:.1f} s -> "
         + ("PASS" if ok else "FAIL"))
     if not ok:
         fail("the live viewer")
+    clear_jit_cache()
 
     # 22. assets 8k ----------------------------------------------------------------
     ph0 = time.perf_counter()
     assets_8k(dev)
     log(f"phase assets 8k: {time.perf_counter() - ph0:.1f} s in all")
+
+    # 23. jit ------------------------------------------------------------------------
+    ph0 = time.perf_counter()
+    jit_rows = jit_phase(dev)
+    log(f"phase jit: {time.perf_counter() - ph0:.1f} s in all")
 
     # each kernel alone, on tables packed once, at the widths of earlier
     # records: the 1080p primary rays, in raster order, every lane live (the
@@ -1920,6 +2171,7 @@ def main():
         bound_ms, bound_by = bound(needed[name][0], needed[name][1] + tab)
         full_ms, full_by = bound(full[name][0], full[name][1] + tab)
         rays = n if name != "shadow_sweep" else ns
+        extra.update(jit_rows[name])
         if name == "step_probe":
             extra.update(frame_ms=probe_frame_ms, frame_device_ms=probe_frame_device_ms,
                          aa_1080p_edge_pass_launches=edge_launches["step_probe"])

@@ -15,7 +15,7 @@ import torch
 from txr_torch import bridge
 from txr_torch.dist.mesh import make_mesh
 from txr_torch.dist.ring import ring_nearest_hit
-from txr_torch.dist.sharded import make_train_step, render_sharded
+from txr_torch.dist.sharded import make_train_step, render_sharded, render_sharded_jit
 from txr_torch.render.raygen import primary_rays
 from txr_torch.render.render import render
 from txr_torch.render.trace import RenderConfig
@@ -23,9 +23,10 @@ from txr_torch.render.trace import RenderConfig
 
 def sharding_cases(device, leaves, moved_leaves, tex):
     """Every sharded case of tests/test_torch_dist.py in one world of 4:
-    renders on meshes (4,) and (2, 2) at 40×24 and at 41×23, one SGD(1.0)
-    step on the moved scene and a short Adam fit, both toward the port's
-    render of the scene."""
+    renders on meshes (4,) and (2, 2) at 40×24 and at 41×23, each also by
+    ``render_sharded_jit`` (twice on (4,): the moved scene, then the scene),
+    one SGD(1.0) step on the moved scene and a short Adam fit, both toward
+    the port's render of the scene."""
     scene, moved = bridge.scene_from_numpy(leaves), bridge.scene_from_numpy(moved_leaves)
     textures = bridge.textures_from_numpy(sphere=tex)
     cfg = RenderConfig(width=40, height=24, refractive_glossy=False)
@@ -35,8 +36,13 @@ def sharding_cases(device, leaves, moved_leaves, tex):
     for shape in ((4,), (2, 2)):
         mesh = make_mesh(shape, axis_names=("dp", "sp"))
         out[f"render{shape}"] = render_sharded(scene, textures, cfg, mesh, device=device).numpy()
+        if shape == (4,):
+            out["jit_moved"] = render_sharded_jit(moved, textures, cfg, mesh, device=device).numpy()
+        out[f"jit{shape}"] = render_sharded_jit(scene, textures, cfg, mesh, device=device).numpy()
     odd = RenderConfig(width=41, height=23, refractive_glossy=False)
     out["render_odd"] = render_sharded(scene, textures, odd, make_mesh((4,)), device=device).numpy()
+    out["jit_odd"] = render_sharded_jit(scene, textures, odd, make_mesh((4,)),
+                                        device=device).numpy()
 
     init, step = make_train_step(textures, cfg, make_mesh((2, 2)),
                                  lambda ps: torch.optim.SGD(ps, lr=1.0),

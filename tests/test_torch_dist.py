@@ -15,6 +15,9 @@ scene at 40×24:
   contract), and 4 sphere-edge pixels by 1.5e-6 to 5e-6;
   the 41×23 frame (rays not divisible by 4, padded with the last ray)
   equals ``render`` bit for bit too;
+* ``render_sharded_jit`` equals ``render_sharded`` bit for bit on the same
+  meshes and frames, also on its second call of a key (after a call on the
+  moved scene);
 * one SGD(1.0) step on ``spheres.pos``: the update is the gradient, held
   against ``jax.grad`` of the unsharded loss, and the loss against JAX's,
   at tests/test_sharding.py's tolerance (rtol 1e-4, atol 1e-7: float32
@@ -102,6 +105,13 @@ def test_sharded_render_odd_ray_count(case):
     for got in case["results"]:
         assert got["render_odd"].shape == (23, 41, 3)
         np.testing.assert_array_equal(got["render_odd"], case["render_odd"])
+
+
+@pytest.mark.parametrize("name", ["(4,)", "(2, 2)", "_odd"])
+def test_sharded_render_jit_matches_render_sharded(case, name):
+    for got in case["results"]:
+        np.testing.assert_array_equal(got[f"jit{name}"], got[f"render{name}"])
+        assert not np.array_equal(got["jit_moved"], got["render(4,)"])
 
 
 def test_sharded_grads_match_jax(case):

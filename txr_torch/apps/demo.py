@@ -292,7 +292,7 @@ def main(argv=None):
     """Render the animated demo; print each frame's rate; write the last
     frame as a PNG or every frame as a GIF.  → dict(img=last frame [H, W, 3],
     fps=[per frame])."""
-    from txr_torch.render.render import render
+    from txr_torch.render.render import render_jit
     from txr_torch.render.texture import with_mips
     from txr_torch.render.trace import RenderConfig, auto_refraction_steps
     from txr_torch.utils import image
@@ -372,7 +372,7 @@ def main(argv=None):
                 cam.update(args.dt)
                 animated = cam.apply(animated)
             with torch.no_grad():
-                img = render(animated, textures, cfg, device=dev)
+                img = render_jit(animated, textures, cfg, device=dev)
             fence(img)
             now = time.perf_counter()
             fps = 1.0 / max(now - last, 1e-9)

@@ -21,7 +21,7 @@ import torch
 
 from txr_torch import resolve_device
 from txr_torch.diff.optimize import optimize_scene
-from txr_torch.render.render import render
+from txr_torch.render.render import render_jit
 from txr_torch.render.texture import TextureSet
 from txr_torch.render.trace import RenderConfig
 from txr_torch.scene.factories import SceneBuilder
@@ -67,7 +67,7 @@ def main(argv=None):
     tex = TextureSet()
     target_scene = make_scene((0.3, 0.2, 6.0), 1.0, (0.1, 0.2, 0.9), (0, 0, -5))
     with torch.no_grad():
-        target = render(target_scene, tex, cfg, device=dev)
+        target = render_jit(target_scene, tex, cfg, device=dev)
     # perturbed initial guess: wrong sphere and wrong camera pose
     guess = make_scene((-0.4, -0.3, 6.5), 0.8, (0.5, 0.5, 0.5), (0.3, 0.2, -5.2),
                        cam_quat=(0.0, 0.02, 0.0, 1.0))
@@ -91,7 +91,7 @@ def main(argv=None):
         print(f"{name:12s} true {show(a)}  recovered {show(b)}")
     if args.out:
         with torch.no_grad():
-            final = render(recovered, tex, cfg, device=dev)
+            final = render_jit(recovered, tex, cfg, device=dev)
         save_png(args.out, side_by_side(target, final, gap=2))
         print(f"wrote {args.out}  (left: target, right: recovered)")
     return losses

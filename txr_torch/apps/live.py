@@ -7,7 +7,10 @@ headless host with a card:
   * WASD/mouse-look input comes back on the same socket (the page posts
     key and pointer events to /input) and drives a ``FlyCamera``;
   * each frame is the animated demo scene (``apps.demo.update_scene``) with
-    the camera's pose written in, converted to uint8 on the card.
+    the camera's pose written in, rendered by ``render_jit`` (the frame's
+    CUDA graphs are captured once, before the server starts, and replayed;
+    only this loop's thread touches the card) and converted to uint8 on the
+    card.
 
 Frames are pipelined: frame N+1 is converted to u8 on the card and started
 before frame N, already copied to pinned host memory, is JPEG-encoded and
@@ -191,7 +194,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from txr_torch.apps.demo import build_scene, demo_textures, update_scene
-    from txr_torch.render.render import render
+    from txr_torch.render.render import render_jit
     from txr_torch.render.texture import with_mips
     from txr_torch.render.trace import RenderConfig, auto_refraction_steps
     from txr_torch.scene.camera import FlyCamera
@@ -208,10 +211,12 @@ def main(argv=None):
     def frame(t, cam):
         s = scene0 if args.no_animate else update_scene(scene0, handles, 0.0, t)
         with torch.no_grad():
-            img = render(cam.apply(s), textures, cfg, device=dev)
+            img = render_jit(cam.apply(s), textures, cfg, device=dev)
             return (img.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
     cam = FlyCamera(position=tuple(scene0.camera.pos.tolist()))
+    # the first frame captures render_jit's graphs, before any HTTP thread runs
+    frame(0.0, cam)
     state = _State()
     server = ThreadingHTTPServer(("127.0.0.1", args.port), _make_handler(state))
     port = server.server_address[1]

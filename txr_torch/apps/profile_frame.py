@@ -7,11 +7,13 @@ wall time; one stream, so device work does not overlap), each txr kernel's
 launches and device time, and the kernels that take the most device time.
 With ``--backward`` the profiled unit is one training step instead: the
 forward render and the gradient of mean(img²) with respect to every float
-scene leaf.  ``--fused`` picks the route (RenderConfig.fused).  Needs a
-CUDA card:
+scene leaf.  With ``--jit`` it is one frame of ``render_jit``: the warm-up
+call captures the frame's CUDA graphs, and the profiled call replays them
+(the launch counts are the replay's, from the captured counts).
+``--fused`` picks the route (RenderConfig.fused).  Needs a CUDA card:
 
     python -m txr_torch.apps.profile_frame [--width 1920] [--height 1080]
-        [--backward] [--fused auto|on|off] [--trace frame_trace.json]
+        [--backward | --jit] [--fused auto|on|off] [--trace frame_trace.json]
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from txr_torch.apps.demo import build_scene, demo_textures
 from txr_torch.kernels import nearest_hit as nh
 from txr_torch.kernels import shadow_sweep as ss
 from txr_torch.kernels import step_probe as sp
-from txr_torch.render.render import render
+from txr_torch.render.render import render, render_jit
 from txr_torch.render.texture import with_mips
 from txr_torch.render.trace import RenderConfig, auto_refraction_steps
 from txr_torch.scene.types import float_leaves, unflatten_like
@@ -71,9 +73,13 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--backward", action="store_true",
                     help="profile a forward + backward training step")
+    ap.add_argument("--jit", action="store_true",
+                    help="profile a replayed frame of render_jit (forward only)")
     ap.add_argument("--fused", default="auto", choices=("auto", "on", "off"))
     ap.add_argument("--trace", default=None, help="keep the chrome trace here")
     args = ap.parse_args(argv)
+    if args.jit and args.backward:
+        ap.error("--jit renders without a gradient; it cannot take --backward")
 
     dev = resolve_device(None)
     scene, _ = build_scene(args.width, args.height)
@@ -83,6 +89,9 @@ def main(argv=None):
                        extra_refraction_steps=auto_refraction_steps(scene), fused=args.fused)
 
     def unit():
+        if args.jit:
+            with torch.no_grad():
+                return render_jit(scene, textures, cfg, device=dev)
         if not args.backward:
             return render(scene, textures, cfg, device=dev)
         leaves = {k: v.detach().requires_grad_(True) for k, v in float_leaves(scene).items()}
@@ -111,7 +120,8 @@ def main(argv=None):
     kernels = {k: dict(launches=launches[k], ms=sum(d for name, d in events if kname in name))
                for k, (_, kname) in KERNELS.items()}
     summary = dict(
-        width=args.width, height=args.height, backward=args.backward, fused=args.fused,
+        width=args.width, height=args.height, backward=args.backward, jit=args.jit,
+        fused=args.fused,
         wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms,
         kernels=kernels, device_events=len(events), device=torch.cuda.get_device_name(dev))
     print(json.dumps(summary))

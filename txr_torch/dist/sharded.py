@@ -9,6 +9,9 @@ backward gives partial parameter gradients; one ``all_reduce`` of the loss
 and every gradient, in one flat buffer, completes them, and every rank
 takes the same optimiser step.
 
+``render_sharded_jit`` replays each rank's trace from CUDA graphs
+(``render/graphs.py``) and gathers after it.
+
 Every collective comes after the local ``trace`` (and after the local
 backward): ranks leave the bounce loop at different steps
 (``render/trace.py``'s early exit on ``alive.any()``), so a collective
@@ -25,7 +28,10 @@ import torch
 from txr_torch import resolve_device
 from txr_torch.diff.optimize import _selected
 from txr_torch.dist.mesh import all_gather_rows, all_reduce_sum
+from txr_torch.kernels.scene_table import pack_scene
+from txr_torch.render.graphs import TraceProgram
 from txr_torch.render.raygen import primary_rays
+from txr_torch.render.render import image, jit_frame
 from txr_torch.render.texture import with_mips
 from txr_torch.render.trace import trace
 from txr_torch.scene.types import flatten_with_paths, unflatten_like
@@ -61,11 +67,33 @@ def render_sharded(scene, textures, cfg, mesh, device=None):
     ro, _ = _pad_to(ro, mesh.size)
     rd, _ = _pad_to(rd, mesh.size)
     color = trace(scene, textures, cfg, _block(ro, mesh), _block(rd, mesh), device=dev)
-    color = all_gather_rows(color)[:n_rays]
+    return image(all_gather_rows(color)[:n_rays], cfg)
+
+
+def render_sharded_jit(scene, textures, cfg, mesh, device=None):
+    """``render_sharded`` with each rank's trace of its block captured in
+    CUDA graphs once per key and replayed (``render.render_jit``'s frames;
+    the key adds the mesh's size and this rank) → [H, W, 3] on every rank,
+    equal to ``render_sharded``'s image bit for bit.  The ``all_gather``
+    stays outside the graphs, after the trace, as in ``render_sharded``."""
     ss = cfg.supersample
-    if ss > 1:
-        return color.reshape(cfg.height, ss, cfg.width, ss, 3).mean(dim=(1, 3))
-    return color.reshape(cfg.height, cfg.width, 3)
+    n_rays = cfg.width * ss * cfg.height * ss
+    block = -(-n_rays // mesh.size)
+
+    def build(frame):
+        def rays(p):
+            frame.table = pack_scene(frame.scene, frame.textures.atlas)
+            ro, rd = primary_rays(frame.scene.camera, cfg.width, cfg.height, ss)
+            p.ro = _block(_pad_to(ro, mesh.size)[0], mesh)
+            p.rd = _block(_pad_to(rd, mesh.size)[0], mesh)
+
+        def finish(p):
+            p.out = p.color.clone()
+
+        return [TraceProgram(frame, cfg, block, rays, finish, frame.rec)]
+
+    color = jit_frame(scene, textures, cfg, device, ("sharded", mesh.size, mesh.rank), build)
+    return image(all_gather_rows(color)[:n_rays], cfg)
 
 
 @dataclasses.dataclass

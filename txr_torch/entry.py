@@ -1,7 +1,8 @@
 """The port's entry points (after __graft_entry__.py).
 
 ``entry()``               → (a forward render of the demo scene at 192×108
-                            on the card, its arguments): a one-card check.
+                            on the card by ``render_jit``, its arguments): a
+                            one-card check.
 ``dryrun_multichip(n)``   → a world of n ranks (``dist.mesh.spawn_world``)
                             renders the demo scene sharded, takes one full
                             sharded train step (forward, local backward, one
@@ -37,7 +38,7 @@ def _small_scene():
 def entry(device=None):
     """(fn, (scene, textures)): ``fn(scene, textures)`` renders the demo
     scene at 192×108, 5 bounces, on ``device`` (CUDA unless "cpu")."""
-    from txr_torch.render.render import render
+    from txr_torch.render.render import render_jit
     from txr_torch.render.trace import RenderConfig
 
     dev = resolve_device(device)
@@ -45,7 +46,7 @@ def entry(device=None):
     cfg = RenderConfig(width=192, height=108, iterations=5)
 
     def fn(scene, textures):
-        return render(scene, textures, cfg, device=dev)
+        return render_jit(scene, textures, cfg, device=dev)
 
     return fn, (scene, textures)
 

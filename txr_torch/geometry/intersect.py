@@ -94,10 +94,10 @@ def ring_uv(ro, rd, t, pos, q, r1, r2):
 
 
 def ring_normal(q):
-    """rotate(inv(q), (0, 0, −1)), rt.frag:391-394."""
-    z = torch.zeros(q.shape[:-1] + (3,), dtype=q.dtype, device=q.device)
-    z[..., 2] = -1.0
-    return quat.rotate(quat.inv(q), z)
+    """rotate(inv(q), (0, 0, −1)), rt.frag:391-394; (0, 0, −1) is made on
+    q's device from fills, with nothing copied from the host."""
+    zero = torch.zeros(q.shape[:-1] + (1,), dtype=q.dtype, device=q.device)
+    return quat.rotate(quat.inv(q), torch.cat([zero, zero, zero - 1.0], dim=-1))
 
 
 def _safe_recip(v, big=1.0e30):

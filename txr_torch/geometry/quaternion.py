@@ -24,8 +24,9 @@ def identity(dtype=torch.float32, device=None):
 
 
 def conj(q):
-    """Quaternion conjugate (rt.frag:285-288)."""
-    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
+    """Quaternion conjugate (rt.frag:285-288), made on q's device without a
+    host-to-device copy (a CUDA graph can capture it)."""
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def inv(q):

@@ -18,3 +18,10 @@ def launch_counts():
 def reset_launch_counts():
     for c in _counters().values():
         c.launches = 0
+
+
+def add_launch_counts(counts):
+    """Add {kernel: n} to the wrappers' counts (a replayed CUDA graph's
+    launches, ``render/graphs.py``)."""
+    for k, c in _counters().items():
+        c.launches += counts.get(k, 0)

@@ -122,7 +122,9 @@ def run(name, symbol, argtypes, device, hdr, *args, defines=()):
     ``device``'s current stream: the scene header as host ints, then
     ``args`` (ints for pointers and counts), then the stream.  Raises on a
     non-zero return: a CUDA error, or (negative) a table the library was
-    not built for."""
+    not built for.  Nothing here waits on the device, so a CUDA graph can
+    capture the launch once the library is loaded (``render_jit`` loads
+    every library in its warm-up frame before it captures)."""
     import torch
 
     fn = load(name, symbol, argtypes, defines)

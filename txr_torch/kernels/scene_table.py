@@ -67,7 +67,8 @@ def set_flags(hdr, *, one_side=True, shadow_enabled=True, do_fresnel=True, tir=T
 def pack_scene(scene, atlas, **flags):
     """Scene + SceneAtlas + flags (``set_flags``) → (buf [n_buf] f32 on the
     scene's device, header ints).  Detached, and built from device tensors
-    with no host sync; a caller packs once and reuses the table."""
+    with no host sync and no host-to-device copy, so a CUDA graph can
+    capture it; a caller packs once and reuses the table."""
     c = scene.counts
     dev = scene.device
     sp, su, bx, to, ri = (scene.spheres, scene.surfaces, scene.boxes,
@@ -114,8 +115,13 @@ def pack_scene(scene, atlas, **flags):
     else:
         slots.append(none(c["rings"]))
     slots.append(none(c["lights_point"]))
-    dims = atlas.dims if atlas is not None else ((0, 0),)
-    texdim = torch.tensor(dims, dtype=torch.float32, device=dev)
+    # texture sizes from the atlas's device tables: no host-to-device copy
+    if atlas is not None:
+        dims = atlas.dims
+        texdim = torch.stack([atlas.h0, atlas.w0], -1).to(dev, torch.float32)
+    else:
+        dims = ((0, 0),)
+        texdim = torch.zeros((1, 2), device=dev)
 
     parts = [recs[k].reshape(-1) for k in _TYPES]
     parts += [torch.cat(mats).reshape(-1), torch.cat(slots).to(torch.float32),

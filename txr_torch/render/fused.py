@@ -12,7 +12,7 @@ import torch
 
 from txr_torch.kernels.step_probe import KIND_BOX, KIND_RGBA, step_probe, unpack
 from txr_torch.render import texture as tx
-from txr_torch.render.intersect import _type_tables, shadow_from_probes
+from txr_torch.render.intersect import _type_tables, over_lanes, shadow_from_probes
 from txr_torch.render.shading import reflect, refract
 from txr_torch.scene.types import TYPE_POINT_LIGHT, TYPE_SPHERE
 
@@ -34,23 +34,22 @@ def _probe(scene, textures, cfg, ro, rd, shade_flipped, table=None, alive=None):
 def _fetch_texels(textures, cfg, pr, ty):
     """The one atlas fetch serving every textured hit type, fed by the
     probe's requests.  Sphere lanes carry the rotated normal; the spherical
-    UV is finished here.  Only lanes that request texels are fetched (a
-    lane the probe skipped requests none); None when there are none."""
+    UV is finished here.  Only lanes that request texels are fetched
+    (``over_lanes``; a lane the probe skipped requests none), the others
+    read 1 and never use it; None when no lane requests."""
     atlas = textures.atlas
     if atlas is None:
         return None
     kind = pr["kind"]
-    lanes = torch.nonzero((kind == KIND_RGBA) | (kind == KIND_BOX)).squeeze(-1)
-    if not lanes.numel():
-        return None
-    # fetch for the requesting lanes only; the others read 1 and never use it
-    req = pr["req"][lanes]
-    sphere_tex = (kind[lanes] == KIND_RGBA) & (ty[lanes] == TYPE_SPHERE)
-    uv = torch.where(sphere_tex[..., None], tx.sphere_uv(req), req[..., :2])
-    k = torch.clamp(pr["req_k"][lanes], 0, len(atlas.dims) - 1)
-    lod = pr["lod"][lanes] if cfg.texture_lod else None
-    texc = torch.ones(kind.shape + (4,), dtype=req.dtype, device=req.device)
-    return texc.index_copy_(0, lanes, tx.sample_atlas(atlas, k, uv, lod))
+
+    def fetch(_, req, kind, ty, k, lod):
+        sphere_tex = (kind == KIND_RGBA) & (ty == TYPE_SPHERE)
+        uv = torch.where(sphere_tex[..., None], tx.sphere_uv(req), req[..., :2])
+        k = torch.clamp(k, 0, len(atlas.dims) - 1)
+        return tx.sample_atlas(atlas, k, uv, lod if cfg.texture_lod else None)
+
+    return over_lanes((kind == KIND_RGBA) | (kind == KIND_BOX), fetch, pr["req"], kind, ty,
+                      pr["req_k"], pr["lod"], fill=1.0)
 
 
 def _apply_texture(pr, texc):
@@ -102,10 +101,11 @@ def _light_color(scene, idx):
     return scene.lights_point.color[torch.clamp(idx, 0, n - 1)]
 
 
-def fused_reflected_color(scene, textures, cfg, ro, rd, table=None):
+def fused_reflected_color(scene, textures, cfg, ro, rd, table=None, alive=None):
     """getReflectedColor (rt.frag:787-802): one extra probe pass whose
-    shading probes use the unflipped hit normal."""
-    pr = _probe(scene, textures, cfg, ro, rd, shade_flipped=False, table=table)
+    shading probes use the unflipped hit normal.  ``alive`` [R] bool: the
+    lanes to probe (None: all); the others read black."""
+    pr = _probe(scene, textures, cfg, ro, rd, shade_flipped=False, table=table, alive=alive)
     hit0, ty, idx = _types_of(scene, pr)
     is_light = ty == TYPE_POINT_LIGHT
     hit = hit0 & ~is_light
@@ -161,16 +161,15 @@ def fused_step_fwd(scene, textures, cfg, st, pr=None, table=None):
 
     refr_act = act & is_refractive
     glossy = refr_act & outside & (refl > 0.0)
-    if cfg.refractive_glossy and glossy.any():
+    if cfg.refractive_glossy:
         # glossy lanes are rare: probe only those (same values per lane)
-        lanes = torch.nonzero(glossy).squeeze(-1)
-        rc = fused_reflected_color(scene, textures, cfg,
-                                   shade_origin_out[lanes].contiguous(),
-                                   reflect(rd, n)[lanes].contiguous(), table)
-        g = glossy[..., None]
-        rc_full = torch.zeros_like(color).index_copy_(0, lanes, rc)
-        color = torch.where(g, color + rc_full * reflect_mult[..., None] * mask, color)
-        mask = torch.where(g, mask * refract_mult[..., None], mask)
+        rc = over_lanes(glossy, lambda alive, o, d: fused_reflected_color(
+            scene, textures, cfg, o.contiguous(), d.contiguous(), table, alive=alive),
+            shade_origin_out, reflect(rd, n))
+        if rc is not None:
+            g = glossy[..., None]
+            color = torch.where(g, color + rc * reflect_mult[..., None] * mask, color)
+            mask = torch.where(g, mask * refract_mult[..., None], mask)
 
     inside = refr_act & ~outside
     absorb_dist = torch.where(inside, absorb_dist + t, absorb_dist)

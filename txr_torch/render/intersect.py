@@ -13,12 +13,22 @@ in the scene, so detaching it is exact away from silhouettes.
 ``shadow_factor`` runs the shadow any-hit kernel (or its twin) detached —
 occlusion is piecewise constant — and keeps the texture-content gradient
 of a textured ring's alpha at the kernel's hit uv.
+
+``over_lanes`` runs the step body's sub-passes on a few lanes (texel
+fetches, ring alpha, the glossy pass) in one of two forms (``lane_lists``):
+on lane lists (``torch.nonzero``, a host read; what ``render`` and
+``trace`` use on the card, so their backward reads only those lanes), or
+on every lane with a mask, which has fixed shapes and reads nothing on the
+host, as a captured CUDA graph needs (``render.render_jit``, inside
+``fixed_shapes()``), and which the CPU always takes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import threading
 
 import torch
 
@@ -62,6 +72,50 @@ def _slot_lookup(counts, device):
              for ty, n in zip(_SLOT_TYPES, counts)]
     idxs = [torch.arange(n, dtype=torch.int64, device=device) for n in counts]
     return torch.cat(types), torch.cat(idxs)
+
+
+_FORM = threading.local()
+
+
+@contextlib.contextmanager
+def fixed_shapes():
+    """Within the block, on this thread: no lane lists (``lane_lists``)."""
+    before = getattr(_FORM, "fixed", False)
+    _FORM.fixed = True
+    try:
+        yield
+    finally:
+        _FORM.fixed = before
+
+
+def lane_lists(device):
+    """Whether the sub-passes of a step (``over_lanes``) and the edge-AA
+    pass (``render._edge_aa``) pick their lanes by ``torch.nonzero``: on
+    the card outside ``fixed_shapes()``.  Never on the CPU: the lists save
+    work only in the card's kernels, and ATen's vectorised CPU ``atan2``
+    and ``pow`` round a value by where it sits in its array, so a lane
+    moved into a list could change in its last bit against the full-width
+    pass of ``render_jit``."""
+    return device.type == "cuda" and not getattr(_FORM, "fixed", False)
+
+
+def over_lanes(mask, fn, *rows, fill=0.0):
+    """``fn(alive, *rows)`` on the lanes where ``mask`` [N] bool holds →
+    [N, ...] with ``fill`` on the other lanes, or None when no lane is set
+    (lane lists only).  Lane lists (``lane_lists``): ``fn`` gets the rows
+    of the set lanes alone (gathered by ``take``) and ``alive=None``.
+    Otherwise ``fn`` gets every row and ``alive=mask``, and ``torch.where``
+    keeps the set lanes.  ``fn`` works lane by lane, so on the card the two
+    forms agree on the set lanes bit for bit."""
+    if not lane_lists(mask.device):
+        out = fn(mask, *rows)
+        return torch.where(mask.reshape(mask.shape + (1,) * (out.ndim - 1)), out, fill)
+    lanes = torch.nonzero(mask).squeeze(-1)
+    if not lanes.numel():
+        return None
+    out = fn(None, *(take(r, lanes) for r in rows))
+    return torch.full(mask.shape + out.shape[1:], fill, dtype=out.dtype,
+                      device=out.device).index_copy(0, lanes, out)
 
 
 def _type_tables(scene):
@@ -240,7 +294,8 @@ def shadow_from_probes(scene, textures, solid, ring_hit, ring_uv):
     rt.frag:630-658): solid occlusion; an opaque ring hit shadows fully; a
     textured ring attenuates by its texture alpha at the hit uv, which keeps
     its texture-content gradient.  The alpha fetch runs on the lanes that
-    hit a textured ring only.  solid [...], ring_hit [..., nr]."""
+    hit a textured ring only (``over_lanes``).  solid [...], ring_hit
+    [..., nr]."""
     sh = solid
     if scene.counts["rings"] and ring_hit is not None:
         textured = scene.rings.texture > 0
@@ -248,12 +303,10 @@ def shadow_from_probes(scene, textures, solid, ring_hit, ring_uv):
         opaque = ~textured if have_tex else torch.ones_like(textured)
         sh = torch.maximum(sh, (ring_hit & opaque).any(-1).to(sh.dtype))
         if have_tex:
-            needa = (ring_hit & textured).reshape(-1)
-            lanes = torch.nonzero(needa).squeeze(-1)
-            if lanes.numel():
-                a = torch.zeros(needa.shape, dtype=sh.dtype, device=sh.device)
-                a = a.index_copy(0, lanes, tx.sample_ring_alpha(
-                    textures, ring_uv.reshape(-1, 2)[lanes]))
+            a = over_lanes((ring_hit & textured).reshape(-1),
+                           lambda _, uv: tx.sample_ring_alpha(textures, uv),
+                           ring_uv.reshape(-1, 2))
+            if a is not None:
                 sh = sh + a.reshape(ring_hit.shape).sum(-1)
     return torch.clamp(sh, max=1.0)
 

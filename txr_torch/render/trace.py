@@ -32,6 +32,7 @@ from txr_torch.render.fused import _probe, fused_step_fwd
 from txr_torch.render.intersect import (
     nearest_hit,
     nearest_hit_saved,
+    over_lanes,
     shadow_from_probes,
 )
 from txr_torch.render.shading import (
@@ -137,7 +138,7 @@ def hit_info(scene, textures, ro, rd, t, ty, idx, pix_angle=None):
     texture applied, alpha and the shadow-acne bias (trace.py:196-489).
     Each type's normal is computed for every ray and blended by the type
     mask; every textured type requests (slot, uv, lod), and one atlas fetch
-    on the requesting lanes serves them all."""
+    on the requesting lanes (``over_lanes``) serves them all."""
     R = t.shape
     dt, dev = ro.dtype, ro.device
     c = scene.counts
@@ -232,11 +233,10 @@ def hit_info(scene, textures, ro, rd, t, ty, idx, pix_angle=None):
             texd[TYPE_RING] = (textured, None)
         blend(sel, ri.mat, i, n)
 
-    lanes = torch.nonzero(req["any"]).squeeze(-1) if texd else None
-    if lanes is not None and lanes.numel():
-        lod = None if pix_angle is None else take(req["lod"], lanes)
-        texc = torch.ones(R + (4,), dtype=dt, device=dev).index_copy(
-            0, lanes, tx.sample_atlas(atlas, req["k"][lanes], take(req["uv"], lanes), lod))
+    rows = (req["k"], req["uv"]) + (() if pix_angle is None else (req["lod"],))
+    texc = over_lanes(req["any"], lambda _, k, uv, lod=None: tx.sample_atlas(atlas, k, uv, lod),
+                      *rows, fill=1.0) if texd else None
+    if texc is not None:
         for ty_, (sel, box_w) in texd.items():
             rgb = texc[..., :3] if box_w is None else texc[..., :3] * box_w[..., None]
             out["color"] = torch.where(sel[..., None], rgb, out["color"])
@@ -247,10 +247,11 @@ def hit_info(scene, textures, ro, rd, t, ty, idx, pix_angle=None):
     return out
 
 
-def _reflected_color(scene, textures, cfg, ro, rd, table=None):
+def _reflected_color(scene, textures, cfg, ro, rd, table=None, alive=None):
     """getReflectedColor (rt.frag:787-802): one extra nearest hit and shade
-    for the glossy part of a refractive surface (not recursive)."""
-    t, ty, idx = nearest_hit(scene, ro, rd, cfg.plane_oneside, table)
+    for the glossy part of a refractive surface (not recursive).  ``alive``
+    [R] bool: the lanes to trace (None: all); the others read black."""
+    t, ty, idx = nearest_hit(scene, ro, rd, cfg.plane_oneside, table, alive=alive)
     hi = hit_info(scene, textures, ro, rd, t, ty, idx, _pix_angle(cfg))
     is_light = ty == TYPE_POINT_LIGHT
     hit = torch.isfinite(t) & (ty >= 0) & ~is_light
@@ -260,7 +261,7 @@ def _reflected_color(scene, textures, cfg, ro, rd, table=None):
     ro2 = torch.where(facing[..., None], hi["pt"] + n * bias, hi["pt"] - n * bias)
     shade = calc_shade(scene, textures, ro2, rd, hi["color"], hi["diffuse"], hi["specular"],
                        hi["kd"], hi["ks"], n, True, cfg.shadow_enabled, cfg.plane_oneside,
-                       table=table)
+                       table=table, need=alive)
     color = torch.where(hit[..., None], shade, 0.0)
     if scene.counts["lights_point"]:
         n_lp = scene.counts["lights_point"]
@@ -331,14 +332,13 @@ def step_jnp(scene, textures, cfg: RenderConfig, st, saved=None, table=None):
     # refractive branch (rt.frag:851-873); the glossy pass runs on its lanes only
     refr_act = act & is_refractive
     glossy = refr_act & outside & (refl > 0.0)
-    if cfg.refractive_glossy and glossy.any():
-        lanes = torch.nonzero(glossy).squeeze(-1)
-        rc = _reflected_color(scene, textures, cfg, take(shade_origin_out, lanes),
-                              take(reflect(rd, n), lanes), table)
-        g = glossy[..., None]
-        rc_full = torch.zeros_like(shade_origin_out).index_copy(0, lanes, rc)
-        color = torch.where(g, color + rc_full * reflect_mult[..., None] * mask, color)
-        mask = torch.where(g, mask * refract_mult[..., None], mask)
+    if cfg.refractive_glossy:
+        rc = over_lanes(glossy, lambda alive, o, d: _reflected_color(
+            scene, textures, cfg, o, d, table, alive=alive), shade_origin_out, reflect(rd, n))
+        if rc is not None:
+            g = glossy[..., None]
+            color = torch.where(g, color + rc * reflect_mult[..., None] * mask, color)
+            mask = torch.where(g, mask * refract_mult[..., None], mask)
 
     inside = refr_act & ~outside
     absorb_dist = torch.where(inside, absorb_dist + t, absorb_dist)
@@ -512,11 +512,36 @@ def _check_route(cfg):
         raise ValueError(f"RenderConfig.fused must be 'auto', 'on' or 'off', got {cfg.fused!r}")
 
 
+def make_step(scene, textures, cfg, table):
+    """The bounce step of ``cfg``'s route as a function of the state dict;
+    on the eager route with ``remat`` and grad mode on, checkpointed."""
+    if cfg.fused != "off":
+        return lambda st: _fused_step(scene, textures, cfg, st, table)
+
+    def step(st):
+        return step_jnp(scene, textures, cfg, st, table=table)
+
+    if cfg.remat and torch.is_grad_enabled():
+        return lambda st: checkpoint(step, st, use_reentrant=False, preserve_rng_state=False)
+    return step
+
+
+def shade_misses(scene, textures, st):
+    """The loop's tail: every ray that missed adds the environment along its
+    rd, frozen at the miss, times its mask.  Every lane is computed (fixed
+    shapes, no host read)."""
+    env = _background(scene, textures, st["rd"])
+    return st["color"] + env * torch.where(st["missed"][..., None], st["mask"], 0.0)
+
+
 @program
 def trace(scene, textures, cfg: RenderConfig, ro, rd, device=None):
     """ro, rd [R,3] → RGB [R,3].  Scene, textures and rays move to
     ``device`` (CUDA unless the caller passes "cpu").  Differentiable in
-    the rays, every float scene leaf and the texture contents."""
+    the rays, every float scene leaf and the texture contents.  The loop
+    stops before a step when no lane is alive (a host read per step);
+    ``graphs.TraceUnit`` runs the same head, step and tail with that
+    test read one step late."""
     _check_route(cfg)
     dev = resolve_device(device)
     scene = scene.to(dev)
@@ -525,25 +550,9 @@ def trace(scene, textures, cfg: RenderConfig, ro, rd, device=None):
     table = pack_scene(scene, textures.atlas)
     st = initial_state(ro.to(dev, torch.float32).contiguous(),
                        rd.to(dev, torch.float32).contiguous())
-    if cfg.fused == "off":
-        def step(st):
-            return step_jnp(scene, textures, cfg, st, table=table)
-
-        if cfg.remat and torch.is_grad_enabled():
-            plain = step
-
-            def step(st):
-                return checkpoint(plain, st, use_reentrant=False, preserve_rng_state=False)
-    else:
-        def step(st):
-            return _fused_step(scene, textures, cfg, st, table)
-
+    step = make_step(scene, textures, cfg, table)
     for _ in range(cfg.max_steps):
         if not st["alive"].any():
             break
         st = step(st)
-    missed = st["missed"]
-    if not missed.any():
-        return st["color"]
-    env = _background(scene, textures, st["rd"])   # rd frozen at the miss
-    return st["color"] + env * torch.where(missed[..., None], st["mask"], 0.0)
+    return shade_misses(scene, textures, st)
