@@ -119,6 +119,16 @@ Phases, one line each:
                launches (b); a call that wants a gradient raises (c); a
                gather of 16-byte rows by index_select and along the
                transposed table's columns, ms and bit for bit (d)
+ 24. train jit  the captured train step (``train_jit_phase``) at 1080p on
+               both routes, every float leaf, loss mean((img − target)²):
+               the first call's seconds, peak and pool memory; the first
+               loss bit for bit the op-by-op step's and each gradient
+               within 1e-5 of its norm; step ms of both in turns; replays
+               under set_sync_debug_mode("error"); a traced replay whose
+               kernel events equal the counted launches; 5-step Adam fits
+               of both within 1e-4; a resume after 2 of 4 steps bit for
+               bit; make_train_step in a world of 1 against the captured
+               step
 The nearest-hit libraries of the ring's shard topologies are built in
 phase 1, before any rank is spawned.  Every phase from 4 on counts kernel
 launches from zero around its own run (a spawned rank counts its own and
@@ -164,6 +174,14 @@ TX_W, TX_H, TX_STEPS = 48, 27, 4
 DIST_REPS = 3
 RING_WORLDS = (2, 4)
 LIVE_SECONDS = 8.0
+# phase train jit: rounds of an eager and a captured step, in turns (the
+# first of a round alternates); the Adam rate of its steps; a gradient's
+# tolerance against the eager step's, relative to its norm; the fits'
+# losses, relative
+TRAIN_ROUNDS = 3
+TRAIN_LR = 5e-3
+TRAIN_REL = 1e-5
+TRAIN_FIT_REL = 1e-4
 # the assets-8k phases: the reference's planet textures are 8192×4096 JPEGs;
 # the demo at ASSET_T seconds into its animation, where jupiter and saturn
 # are both in view (at 96×54, some 200 and 40 pixels)
@@ -1007,14 +1025,14 @@ def assets_8k(dev):
     return rec
 
 
-def profile_replay(fn, kernels):
+def profile_replay(fn):
     """One call of ``fn`` (a render_jit frame whose graphs are captured)
     under torch.profiler, after a warm call → dict(wall_ms, device_ms,
     busy_share, device_events, counted, traced, kernel_ms): ``counted`` the
     launches the wrappers count from zero around it, ``traced`` the device
     events of each txr kernel in the trace, ``kernel_ms`` their device ms.
-    Up to three traces, until one holds every counted launch of
-    ``kernels`` (the tracer may drop device records)."""
+    Up to three traces, until one holds every counted launch (the tracer
+    may drop device records)."""
     import torch
 
     from txr_torch.apps.profile_frame import KERNELS, device_events
@@ -1042,7 +1060,7 @@ def profile_replay(fn, kernels):
         out = dict(wall_ms=wall, device_ms=device, busy_share=device / wall,
                    device_events=len(events), counted=counted, traced=traced,
                    kernel_ms=kernel_ms)
-        if all(traced[k] == counted[k] for k in kernels):
+        if traced == counted:
             return out
     return out
 
@@ -1179,7 +1197,7 @@ def jit_phase(dev):
                         times[f"{name}_wall_ms"].append((time.perf_counter() - t0) * 1e3)
                 row.update(times)
                 if aa == "1spp":
-                    prof = profile_replay(run_j, kernels)
+                    prof = profile_replay(run_j)
                     row["profile"] = prof
                     for k in kernels:
                         replay[k] = dict(jit_launches_per_frame=prof["counted"][k],
@@ -1217,6 +1235,319 @@ def jit_phase(dev):
         f"{'PASS' if all(r['equal'] for r in gb.values()) else 'FAIL'}")
     if not all(r["equal"] for r in gb.values()):
         fail("a gather along the transposed table's columns differs from index_select")
+    return replay
+
+
+def train_jit_phase(dev):
+    """Phase 24: the captured train step (``diff/optimize.py: _Fit``, the
+    step of ``optimize_scene``, and ``make_train_step``) at 1080p on the
+    demo scene, every float leaf, loss mean((img − target)²) toward the
+    demo frame from a guess with the camera and the spheres moved, on both
+    routes: (a) the first call (warm-up and capture): seconds, peak device
+    memory, the memory the graphs' pool holds, the launches of a replayed
+    step; the first loss bit for bit the eager step's (``_eager_step``,
+    the op-by-op step), each leaf's gradient within TRAIN_REL of its norm;
+    (b) step ms of eager and captured steps in turns (TRAIN_ROUNDS rounds
+    of eager, captured or captured, eager; CUDA events and host clock);
+    (c) two replayed steps under ``set_sync_debug_mode("error")``; (d) a
+    profiler trace of one replayed step (device ms, busy share) whose
+    kernel events equal the counted launches; (e) OPT_STEPS-step Adam fits
+    from the guess, captured and eager, losses within TRAIN_FIT_REL
+    relative (each step's difference recorded); (f) ``optimize_scene``
+    resumed after 2 of 4 steps, losses, parameters and checkpoint file bit
+    for bit the uninterrupted run's; (g) ``make_train_step`` in a world of
+    1 (nccl, in process), one step from the guess: its loss within 1e-6
+    relative and its gradients within DIST_REL of their norms of the
+    captured local step's (the same rays in raster order, not screen
+    tiles: sums in another order).  First (h): ``utils/index.take``'s
+    backward, its one-hot product and its segment sum, at 1080p's reads,
+    makes no host sync and replays from a graph bit for bit; (i) the
+    captured update (``graphs.Recorder.capture_update``) of NAdam, Rprop,
+    ASGD (state not starting at zero), Adam, dampened SGD and
+    ``keep_grads_sgd`` equals the optimiser's own 4 steps bit for bit, and
+    one built with ``capturable=False`` is refused.  → {kernel:
+    dict(train_jit_launches_per_step, train_replay_device_ms_per_launch)}
+    from the traces."""
+    import torch
+    import torch.distributed as tdist
+
+    from txr_torch.apps.demo import build_scene, demo_textures
+    from txr_torch.diff import optimize as opt_mod
+    from txr_torch.dist.mesh import default_backend, init_multihost, make_mesh
+    from txr_torch.dist.sharded import make_train_step
+    from txr_torch.kernels import build
+    from txr_torch.kernels import launch_counts as counts
+    from txr_torch.kernels import reset_launch_counts as reset_counts
+    from txr_torch.kernels.scene_table import pack_scene
+    from txr_torch.render.graphs import Recorder
+    from txr_torch.render.render import clear_jit_cache, render_jit
+    from txr_torch.render.texture import with_mips
+    from txr_torch.render.trace import RenderConfig, auto_refraction_steps
+    from txr_torch.scene.types import float_leaves, unflatten_like
+    from txr_torch.utils.checkpoint import load_arrays
+    from txr_torch.utils.index import take
+
+    routes = (("auto", ("step_probe",)), ("off", ("nearest_hit", "shadow_sweep")))
+    true_cpu, _ = build_scene(W, H)
+    build.build_all([("step_probe", ()), ("shadow_sweep", ()),
+                     ("nearest_hit", build.topology(pack_scene(true_cpu, None)[1]))])
+    true = true_cpu.to(dev)
+    guess = unflatten_like(true_cpu, {
+        "camera.pos": true_cpu.camera.pos + torch.tensor([0.04, -0.03, 0.05]),
+        "spheres.pos": true_cpu.spheres.pos + torch.tensor([0.06, 0.04, -0.05])}).to(dev)
+    textures = with_mips(demo_textures().to(dev))
+    base = RenderConfig(width=W, height=H, iterations=5,
+                        extra_refraction_steps=auto_refraction_steps(true_cpu))
+
+    def grads(fit):
+        return {p: torch.zeros_like(v) if v.grad is None else v.grad.detach().clone()
+                for p, v in fit.params.items()}
+
+    def worst_rel(got, want):
+        """The largest ||g − w|| / ||w|| over the leaves, the leaves over
+        TRAIN_REL, and {leaf: ||g − w|| / ||w||} of those over 1e-8."""
+        worst, bad, by_leaf = 0.0, [], {}
+        for p, w in want.items():
+            d, nrm = float((got[p] - w).norm()), float(w.norm())
+            rel = d / nrm if nrm else (0.0 if d == 0 else float("inf"))
+            worst = max(worst, rel)
+            if rel > 1e-8:
+                by_leaf[p] = rel
+            if d > TRAIN_REL * nrm:
+                bad.append((p, d, nrm))
+        return worst, bad, by_leaf
+
+    # (h) take's backward, the one-hot product (6 rows) and the segment sum
+    # (4096 rows), at 1080p's reads: no host sync, and captured and
+    # replayed, bit for bit the eager result
+    gen = torch.Generator(device=dev).manual_seed(0)
+    takes = {}
+    for rows in (6, 4096):
+        table = torch.rand(rows, 4, device=dev, generator=gen)
+        idx = torch.randint(0, rows, (W * H,), device=dev, generator=gen)
+        cot = torch.randn(W * H, 4, device=dev, generator=gen)
+        out = {}
+
+        def take_vjp():
+            with torch.enable_grad():
+                t = table.detach().requires_grad_(True)
+                (out["g"],) = torch.autograd.grad(take(t, idx), t, cot)
+
+        take_vjp()
+        want = out["g"].clone()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            take_vjp()
+            sync_free = True
+        except RuntimeError as e:
+            sync_free = str(e)[:200]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rec = Recorder(dev)
+        rec.warm_up(take_vjp)
+        piece = rec.capture(take_vjp)
+        out["g"].zero_()
+        piece.replay()
+        torch.cuda.synchronize()
+        takes[rows] = dict(sync_free=sync_free,
+                           replay_bit_for_bit=bool(torch.equal(out["g"], want)))
+    ok = all(r["sync_free"] is True and r["replay_bit_for_bit"] for r in takes.values())
+    log(f"phase train jit take (the backward of utils/index.take at {W * H} reads): "
+        f"{json.dumps(takes)} -> {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        fail("take's backward synchronises or does not replay from a graph")
+
+    # (i) the captured update of optimisers whose state starts elsewhere
+    # than zero, and of a subclass, against their own steps; one built
+    # with capturable=False is refused
+    x0 = torch.randn(4096, device=dev, generator=gen)
+    gs = torch.randn(4, 4096, device=dev, generator=gen)
+    makers = dict(
+        nadam=lambda ps: torch.optim.NAdam(ps, lr=1e-2, capturable=True),
+        rprop=lambda ps: torch.optim.Rprop(ps, lr=1e-2, capturable=True),
+        asgd=lambda ps: torch.optim.ASGD(ps, lr=1e-2, capturable=True),
+        adam=lambda ps: torch.optim.Adam(ps, lr=1e-2, fused=True, capturable=True),
+        sgd_dampened=lambda ps: torch.optim.SGD(ps, lr=1e-2, momentum=0.9, dampening=0.5),
+        keep_grads_sgd=keep_grads_sgd)
+    updates = {}
+    for name, make in makers.items():
+        runs = []
+        for captured in (False, True):
+            x = x0.clone().requires_grad_(True)
+            x.grad = torch.zeros_like(x0)       # static, as a train frame's
+            opt, update = make([x]), None
+            for g in gs:
+                x.grad.copy_(g)
+                if captured and update is None:
+                    update = Recorder(dev).capture_update(opt)
+                update.replay() if captured else opt.step()
+                # what the step keeps: keep_grads_sgd's copy of the gradient
+                runs.append([x.detach().clone(), *[t.clone() for t in getattr(opt, "grads", [])]])
+        n = len(gs)
+        updates[name] = (all(torch.equal(a, b) for r, q in zip(runs[:n], runs[n:])
+                             for a, b in zip(r, q))
+                         and not torch.equal(runs[n - 1][0], x0))
+    try:
+        x = x0.clone().requires_grad_(True)
+        x.grad = gs[0].clone()
+        Recorder(dev).capture_update(torch.optim.Adam([x], lr=1e-2, capturable=False))
+        updates["capturable_false_raises"] = False
+    except ValueError:
+        updates["capturable_false_raises"] = True
+    ok = all(updates.values())
+    log(f"phase train jit update (4 steps of 4096 parameters, captured vs the optimiser's own, "
+        f"bit for bit): {json.dumps(updates)} -> {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        fail("a captured optimiser update differs from the optimiser's own steps")
+
+    replay = {}
+    for fused, kernels in routes:
+        ph0 = time.perf_counter()
+        cfg = dataclasses.replace(base, fused=fused)
+        row = {}
+        with torch.no_grad():
+            target = render_jit(true, textures, cfg, device=dev)
+        clear_jit_cache()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+        def fit_of(captured):
+            return opt_mod._Fit(guess, textures, cfg, target, lr=TRAIN_LR, device=dev,
+                                captured=captured)
+
+        try:
+            # (a) the first call, against the eager step
+            cap = fit_of(True)
+            t0 = time.perf_counter()
+            loss_c, _ = cap.step(0)
+            torch.cuda.synchronize()
+            row["first_call_s"] = time.perf_counter() - t0
+            row["peak_gb"] = (torch.cuda.max_memory_allocated() - a0) / 1e9
+            row["pool_gb"] = (torch.cuda.memory_reserved() - r0) / 1e9
+            g_c = grads(cap)
+            loss_c = loss_c.clone()
+            eag = fit_of(False)
+            torch.cuda.reset_peak_memory_stats()
+            a1 = torch.cuda.memory_allocated()
+            loss_e, _ = eag.step(0)
+            torch.cuda.synchronize()
+            row["eager_peak_gb"] = (torch.cuda.max_memory_allocated() - a1) / 1e9
+            g_e = grads(eag)
+            row["first_loss"] = float(loss_c)
+            row["first_loss_bit_for_bit"] = bool(torch.equal(loss_c, loss_e))
+            row["worst_grad_rel"], bad, row["grad_rel_over_1e-8"] = worst_rel(g_c, g_e)
+            row["leaves"] = len(g_c)
+            reset_counts()
+            cap.step(0)
+            torch.cuda.synchronize()
+            row["launches_per_replay"] = counts()
+            (unit,) = cap.frame.programs[0].units.values()
+            row["capacities_stepped"] = unit.steps_run
+
+            # (b) step ms in turns
+            times = dict(eager_ms=[], jit_ms=[], eager_wall_ms=[], jit_wall_ms=[])
+            for r in range(TRAIN_ROUNDS):
+                for fit, name in ((eag, "eager"), (cap, "jit"))[::1 - 2 * (r % 2)]:
+                    t0 = time.perf_counter()
+                    times[f"{name}_ms"].append(cuda_ms(lambda: fit.step(0), 1))
+                    times[f"{name}_wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            row.update(times)
+
+            # (c) replays that read nothing on the host
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(2):
+                    cap.step(0)
+                row["sync_free"] = True
+            except RuntimeError as e:
+                row["sync_free"] = str(e)[:300]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+
+            # (d) a traced replay
+            prof = profile_replay(lambda: cap.step(0))
+            row["profile"] = prof
+            for k in kernels:
+                replay[k] = dict(train_jit_launches_per_step=prof["counted"][k],
+                                 train_replay_device_ms_per_launch=(
+                                     prof["kernel_ms"][k] / max(prof["traced"][k], 1)))
+            cap.close()         # its frame is the next captured fit's
+            del cap, eag
+
+            # (e) two fits from the guess
+            fits = {}
+            for captured in (True, False):
+                fit = fit_of(captured)
+                fits[captured] = [float(fit.step(i)[0]) for i in range(OPT_STEPS)]
+                fit.close()
+                del fit
+            row["fit_losses"] = fits[True]
+            row["fit_losses_eager"] = fits[False]
+            row["fit_rel"] = [abs(a - b) / abs(b) for a, b in zip(fits[True], fits[False])]
+
+            # (f) resume after 2 of 4 steps
+            with tempfile.TemporaryDirectory() as tmp:
+                whole, part = os.path.join(tmp, "whole.npz"), os.path.join(tmp, "part.npz")
+                kw = dict(lr=TRAIN_LR, device=dev)
+                s4, l4 = opt_mod.optimize_scene(guess, textures, cfg, target, steps=4,
+                                                checkpoint_path=whole, checkpoint_every=4, **kw)
+                opt_mod.optimize_scene(guess, textures, cfg, target, steps=2, checkpoint_path=part,
+                                       checkpoint_every=2, **kw)
+                s, l = opt_mod.optimize_scene(guess, textures, cfg, target, steps=4,
+                                              checkpoint_path=part, checkpoint_every=2, resume=True,
+                                              **kw)
+                a, b = load_arrays(part)[0], load_arrays(whole)[0]
+                row["resume_bit_for_bit"] = (
+                    l == l4 and set(a) == set(b)
+                    and all(a[k].tobytes() == b[k].tobytes() for k in b)
+                    and all(torch.equal(x, y) for x, y in zip(float_leaves(s).values(),
+                                                              float_leaves(s4).values())))
+            clear_jit_cache()
+            torch.cuda.empty_cache()
+
+            # (g) make_train_step in a world of 1
+            with tempfile.TemporaryDirectory() as tmp:
+                init_multihost(init_method="file://" + os.path.join(tmp, "store"), world_size=1,
+                               rank=0, backend=default_backend([dev]))
+                try:
+                    init, step = make_train_step(textures, cfg, make_mesh(),
+                                                 lambda ps: torch.optim.SGD(ps, lr=0.0), device=dev)
+                    state = init(guess)
+                    reset_counts()
+                    _, _, loss_1 = step(guess, state, target)
+                    torch.cuda.synchronize()
+                    row["world_1_launches"] = counts()
+                    row["world_1_loss_rel"] = abs(float(loss_1) - float(loss_c)) / float(loss_c)
+                    got = {p: v.grad.detach().clone() for p, v in state.params.items()}
+                    row["world_1_worst_grad_rel"] = worst_rel(got, g_c)[0]
+                    row["world_1_step_ms"] = cuda_ms(lambda: step(guess, state, target), 2)
+                    row["world_1_backend"] = tdist.get_backend()
+                    del state
+                finally:
+                    tdist.destroy_process_group()
+            clear_jit_cache()
+            torch.cuda.empty_cache()
+        finally:
+            # whatever the route reached, on its own line
+            log(f"phase train jit ({W}x{H}, fused={fused}, every float leaf): "
+                f"{json.dumps(row, default=str)}; {time.perf_counter() - ph0:.1f} s")
+
+        # every kernel's events: the probe route's backward launches the
+        # sweeps too (its glossy pass, recomputed in saved mode)
+        ok = (row["first_loss_bit_for_bit"] and not bad and row["sync_free"] is True
+              and prof["traced"] == prof["counted"] and all(prof["counted"][k] for k in kernels)
+              and all(row["launches_per_replay"][k] for k in kernels)
+              and max(row["fit_rel"]) <= TRAIN_FIT_REL and row["resume_bit_for_bit"]
+              and row["world_1_loss_rel"] <= 1e-6 and row["world_1_worst_grad_rel"] <= DIST_REL
+              and all(row["world_1_launches"][k] for k in kernels))
+        log(f"phase train jit ({W}x{H}, fused={fused}) -> {'PASS' if ok else 'FAIL ' + str(bad)}")
+        if not ok:
+            fail(f"the captured train step at 1080p (fused={fused}): see the line above")
     return replay
 
 
@@ -2129,6 +2460,11 @@ def main():
     jit_rows = jit_phase(dev)
     log(f"phase jit: {time.perf_counter() - ph0:.1f} s in all")
 
+    # 24. train jit ------------------------------------------------------------------
+    ph0 = time.perf_counter()
+    train_rows = train_jit_phase(dev)
+    log(f"phase train jit: {time.perf_counter() - ph0:.1f} s in all")
+
     # each kernel alone, on tables packed once, at the widths of earlier
     # records: the 1080p primary rays, in raster order, every lane live (the
     # probe, the sweep);
@@ -2172,6 +2508,7 @@ def main():
         full_ms, full_by = bound(full[name][0], full[name][1] + tab)
         rays = n if name != "shadow_sweep" else ns
         extra.update(jit_rows[name])
+        extra.update(train_rows[name])
         if name == "step_probe":
             extra.update(frame_ms=probe_frame_ms, frame_device_ms=probe_frame_device_ms,
                          aa_1080p_edge_pass_launches=edge_launches["step_probe"])

@@ -19,6 +19,7 @@ from txr_torch.dist.sharded import make_train_step, render_sharded, render_shard
 from txr_torch.render.raygen import primary_rays
 from txr_torch.render.render import render
 from txr_torch.render.trace import RenderConfig
+from txr_torch.scene.types import float_leaves, unflatten_like
 
 
 def sharding_cases(device, leaves, moved_leaves, tex):
@@ -26,7 +27,8 @@ def sharding_cases(device, leaves, moved_leaves, tex):
     renders on meshes (4,) and (2, 2) at 40×24 and at 41×23, each also by
     ``render_sharded_jit`` (twice on (4,): the moved scene, then the scene),
     one SGD(1.0) step on the moved scene and a short Adam fit, both toward
-    the port's render of the scene."""
+    the port's render of the scene, and one step of every float leaf at
+    41×23 beside a plain render and backward of its loss."""
     scene, moved = bridge.scene_from_numpy(leaves), bridge.scene_from_numpy(moved_leaves)
     textures = bridge.textures_from_numpy(sphere=tex)
     cfg = RenderConfig(width=40, height=24, refractive_glossy=False)
@@ -61,6 +63,24 @@ def sharding_cases(device, leaves, moved_leaves, tex):
         losses.append(float(loss))
     out["adam_losses"] = losses
     out["adam_pos"] = s.spheres.pos.numpy()
+
+    # every float leaf on the odd frame (rays padded to the world), the
+    # step's all_reduced gradients against a plain render and backward
+    with torch.no_grad():
+        odd_target = render(scene, textures, odd, device=device)
+    init, step = make_train_step(textures, odd, make_mesh((4,)),
+                                 lambda ps: torch.optim.SGD(ps, lr=0.0), device=device)
+    state = init(moved)
+    _, _, loss = step(moved, state, odd_target)
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in float_leaves(moved).items()}
+    ref = ((render(unflatten_like(moved, leaves), textures, odd, device=device)
+            - odd_target) ** 2).mean()
+    grads = torch.autograd.grad(ref, list(leaves.values()), allow_unused=True)
+    out["every_leaf"] = dict(
+        loss=float(loss), ref_loss=float(ref),
+        grads={k: v.grad.numpy().copy() for k, v in state.params.items()},
+        ref_grads={k: np.zeros(v.shape, np.float32) if g is None else g.numpy()
+                   for (k, v), g in zip(leaves.items(), grads)})
     return out
 
 

@@ -10,7 +10,9 @@ of up to 1000 terms of order 1), bit for bit against the CPU's sequential
 and two calls against each other bit for bit, on skewed reads, on a
 texel-sized table of 2^22 rows with 10^4 reads, on runs of one read and
 of a thousand, and on rows that sum to -0.0 or cancel; through ``take``
-the table's gradient equals ``index_add_``'s.  The texture-content gradients against
+the table's gradient equals ``index_add_``'s.  Reads whose cotangent is
+±0.0 (the fill lanes of the full-width texel fetch that the captured
+train step runs) change no bit of the sum.  The texture-content gradients against
 JAX stay in tests/test_torch_grads.py and tests/test_torch_optimize.py.
 """
 
@@ -70,3 +72,24 @@ def test_take_backward_on_a_texel_table():
     table = torch.zeros(2 * ONE_HOT_ROWS + 5, 4, requires_grad=True)
     (grad,) = torch.autograd.grad(take(table, idx.reshape(60, 50)), table, g.reshape(60, 50, 4))
     assert torch.equal(grad, torch.zeros_like(table).index_add_(0, idx, g))
+
+
+@pytest.mark.parametrize("kind", ["zipf", "signed_zero"])
+def test_zero_cotangent_reads_change_no_bit(kind):
+    """The full-width form of a texel fetch (``intersect.over_lanes`` under
+    ``fixed_shapes``) reads for every lane; a lane that requests no texel
+    carries a cotangent of +0.0 or -0.0 into the segment sum.  Interleaved
+    among the real reads, at rows read or not, they leave the lane-list
+    form's sum as it was, bit for bit."""
+    idx, g = _case(8, 4000, 4096, 4, kind)
+    rng = np.random.default_rng(9)
+    n_fill = 3000
+    at = rng.permutation(len(idx) + n_fill) < n_fill
+    fill_g = np.where(rng.random((n_fill, 4)) < 0.5, 0.0, -0.0).astype(np.float32)
+    idx_all = np.empty(len(idx) + n_fill, np.int64)
+    g_all = np.empty((len(idx) + n_fill, 4), np.float32)
+    idx_all[~at], g_all[~at] = idx.numpy(), g.numpy()
+    idx_all[at], g_all[at] = rng.integers(0, 4096, n_fill), fill_g
+    want = segment_sum(idx, g, 4096)
+    got = segment_sum(torch.from_numpy(idx_all), torch.from_numpy(g_all), 4096)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -9,11 +9,14 @@ With ``--backward`` the profiled unit is one training step instead: the
 forward render and the gradient of mean(img²) with respect to every float
 scene leaf.  With ``--jit`` it is one frame of ``render_jit``: the warm-up
 call captures the frame's CUDA graphs, and the profiled call replays them
-(the launch counts are the replay's, from the captured counts).
+(the launch counts are the replay's, from the captured counts); with
+``--jit --backward``, one replayed train step of ``optimize_scene`` on the
+same loss (every float leaf, Adam at lr 0, so both calls take the same
+step): forward, loss, backward, gradient norm and update.
 ``--fused`` picks the route (RenderConfig.fused).  Needs a CUDA card:
 
     python -m txr_torch.apps.profile_frame [--width 1920] [--height 1080]
-        [--backward | --jit] [--fused auto|on|off] [--trace frame_trace.json]
+        [--backward] [--jit] [--fused auto|on|off] [--trace frame_trace.json]
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from txr_torch import resolve_device
 from txr_torch.apps.demo import build_scene, demo_textures
+from txr_torch.diff.optimize import _Fit
 from txr_torch.kernels import nearest_hit as nh
 from txr_torch.kernels import shadow_sweep as ss
 from txr_torch.kernels import step_probe as sp
@@ -74,12 +78,11 @@ def main(argv=None):
     ap.add_argument("--backward", action="store_true",
                     help="profile a forward + backward training step")
     ap.add_argument("--jit", action="store_true",
-                    help="profile a replayed frame of render_jit (forward only)")
+                    help="profile a replayed frame of render_jit (with --backward: a replayed "
+                         "train step)")
     ap.add_argument("--fused", default="auto", choices=("auto", "on", "off"))
     ap.add_argument("--trace", default=None, help="keep the chrome trace here")
     args = ap.parse_args(argv)
-    if args.jit and args.backward:
-        ap.error("--jit renders without a gradient; it cannot take --backward")
 
     dev = resolve_device(None)
     scene, _ = build_scene(args.width, args.height)
@@ -88,7 +91,13 @@ def main(argv=None):
     cfg = RenderConfig(width=args.width, height=args.height, iterations=5,
                        extra_refraction_steps=auto_refraction_steps(scene), fused=args.fused)
 
+    if args.jit and args.backward:
+        fit = _Fit(scene, textures, cfg, torch.zeros((args.height, args.width, 3), device=dev),
+                   lr=0.0, device=dev)
+
     def unit():
+        if args.jit and args.backward:
+            return fit.step(0)
         if args.jit:
             with torch.no_grad():
                 return render_jit(scene, textures, cfg, device=dev)

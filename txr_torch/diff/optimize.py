@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from txr_torch import resolve_device
-from txr_torch.render.render import render
+from txr_torch.render.render import frame_programs, keep_train_frame, render, train_frame
 from txr_torch.scene.types import flatten_with_paths as _flatten_with_paths
 from txr_torch.scene.types import unflatten_like as _unflatten_like
 from txr_torch.utils.checkpoint import load_arrays, rebuild_tree, save_state
@@ -67,6 +67,108 @@ def select_params(mask_paths):
     return apply
 
 
+def _adam(params, lr):
+    """The default optimiser: Adam with optax.adam's update, m̂ / (√v̂ +
+    eps), eps = 1e-8, as ``torch.optim.Adam``'s fused kernel, whose step
+    count and rate (the 0-dim tensor ``lr``) stay on the device: no host
+    read, so its update can be captured (``capturable`` on the card)."""
+    return torch.optim.Adam(params, lr=lr, eps=1e-8, fused=True, capturable=lr.is_cuda)
+
+
+class _Fit:
+    """One ``optimize_scene`` run: its parameters, the optimiser over them
+    and its step.  Captured (``optimize_scene``'s only form): the
+    parameters are the static buffers of the run's train frame
+    (``render.train_frame``, keyed by cfg, the scene topology, the atlas
+    layout, the trainable paths, their transforms and the loss kind; the
+    run's alone until ``close`` keeps it for the next run of its key), and
+    ``step`` replays the frame's forward, loss, backward and gradient norm,
+    then the optimiser's update (``graphs.Recorder.capture_update``).  Not
+    captured: ``_eager_step``, the op-by-op step the capture is held
+    against.  ``lr`` is a 0-dim tensor on the device that the optimiser
+    reads and ``step`` fills, so a schedule needs no capture of its own."""
+
+    def __init__(self, scene, textures, cfg, target, param_paths=None, loss_kind="l2",
+                 optimizer=None, lr=1e-2, param_transform=None, device=None, captured=True):
+        self.dev = dev = resolve_device(device)
+        self.cfg, self.loss_kind, self.captured = cfg, loss_kind, captured
+        scene = scene.to(dev)
+        flat = _flatten_with_paths(scene)
+        paths = tuple(p for p, v in flat.items()
+                      if v.is_floating_point() and _selected(p, param_paths))
+        if not paths:
+            raise ValueError(f"optimize_scene: no float leaf matches {param_paths}")
+        self.transform = {p: fn for p, fn in (param_transform or {}).items() if p in flat}
+        # a frozen leaf enters the scene transformed once
+        self.scene0 = _unflatten_like(scene, {p: fn(flat[p]) for p, fn in self.transform.items()
+                                              if p not in paths})
+        self.target = torch.as_tensor(target, dtype=torch.float32).to(dev)
+        if captured:
+            self.frame, self.textures = train_frame(
+                self.scene0, textures, cfg, dev, ("fit", loss_kind),
+                frame_programs(cfg, train=True), paths, self.transform,
+                lambda f, out: image_loss(out, f.target, loss_kind), tuple(self.target.shape))
+            self.frame.load(self.scene0, self.textures, flat, self.target)
+            self.params = self.frame.params
+        else:
+            self.textures = textures
+            self.params = {p: flat[p].detach().clone().requires_grad_(True) for p in paths}
+        self.rate = lr if callable(lr) else (lambda _step: lr)
+        self.lr = torch.full((), float(self.rate(0)), device=dev)
+        self.opt = (optimizer or _adam)(list(self.params.values()), self.lr)
+        if callable(lr) and any(g["lr"] is not self.lr for g in self.opt.param_groups):
+            raise ValueError("optimize_scene: a schedule needs an optimiser that reads the lr "
+                             "tensor it is given")
+        self.update = None
+
+    def close(self):
+        """The run is over: its train frame is kept for the next run of its
+        key (``render.keep_train_frame``); the fit steps no more."""
+        if self.captured and self.frame is not None:
+            keep_train_frame(self.frame)
+            self.frame = None
+
+    def rebuild(self, params=None):
+        """The scene of the parameters (default the fit's own), each
+        through its transform."""
+        merged = dict(self.params if params is None else params)
+        for p, fn in self.transform.items():
+            if p in merged:
+                merged[p] = fn(merged[p])
+        return _unflatten_like(self.scene0, merged)
+
+    def scene(self):
+        """The scene of the current parameters, on storage of its own."""
+        with torch.no_grad():
+            return self.rebuild({p: v.detach().clone() for p, v in self.params.items()})
+
+    def step(self, i):
+        """Step ``i`` → (loss, gradient norm), 0-dim tensors on the device;
+        the gradients stay in each parameter's ``.grad``."""
+        self.lr.fill_(self.rate(i))
+        if not self.captured:
+            return _eager_step(self)
+        self.frame.step()
+        if self.update is None:
+            self.update = self.frame.rec.capture_update(self.opt)
+        self.update.replay()
+        return self.frame.flat[0], self.frame.gnorm
+
+
+def _eager_step(fit):
+    """The op-by-op step that the captured one replays, and its reference:
+    ``render``, ``loss.backward()``, the gradient norm, ``opt.step()`` →
+    (loss, gradient norm)."""
+    fit.opt.zero_grad(set_to_none=True)
+    loss = image_loss(render(fit.rebuild(), fit.textures, fit.cfg, device=fit.dev), fit.target,
+                      fit.loss_kind)
+    loss.backward()
+    gnorm = torch.sqrt(sum((p.grad * p.grad).sum() for p in fit.params.values()
+                           if p.grad is not None))
+    fit.opt.step()
+    return loss.detach(), gnorm
+
+
 def optimize_scene(scene, textures, cfg, target, steps=100, lr=1e-2, param_paths=None,
                    loss_kind="l2", optimizer=None, callback=None, param_transform=None,
                    metrics_path=None, device=None, checkpoint_path=None, checkpoint_every=0,
@@ -77,12 +179,19 @@ def optimize_scene(scene, textures, cfg, target, steps=100, lr=1e-2, param_paths
     ``param_paths``: the dotted leaf paths that move (prefixes count);
     default every float leaf.  ``lr``: a rate, or a function of the step
     giving the rate (a schedule).  ``optimizer``: a function of (params, lr)
-    returning a ``torch.optim.Optimizer``; default Adam.
+    returning a ``torch.optim.Optimizer``, ``lr`` a 0-dim tensor on the
+    device whose value is the step's rate; default Adam (``_adam``).
     ``param_transform``: {path: fn} applied to a parameter before it enters
     the scene, the stored parameter staying free (e.g. ``QUAT_NORMALIZE``).
     ``callback(step, scene, loss)`` runs after each step.  ``metrics_path``:
     one JSON record per step (step, loss, grad_norm, wall_s, rays_per_s).
     Runs on CUDA unless ``device`` says otherwise.
+
+    Each step runs as CUDA graphs, the counterpart of the JAX package's
+    jitted step: forward, loss, backward to every parameter, gradient norm
+    and update, captured at the first step (``_Fit``) and replayed; the
+    loss is read on the host once a step.  An optimiser that cannot be
+    captured raises.  On the CPU the same pieces run eagerly.
 
     Failure recovery: with ``checkpoint_path`` and ``checkpoint_every=k``,
     the parameters, the optimiser's state (Adam: exp_avg, exp_avg_sq, step
@@ -90,45 +199,21 @@ def optimize_scene(scene, textures, cfg, target, steps=100, lr=1e-2, param_paths
     every k steps and after the last (``utils.checkpoint``, atomically);
     ``resume=True`` restarts from the file, if there is one, and goes on to
     ``steps`` in all: the lr schedule resumes at the saved step and the
-    metrics file is appended to.  On the CPU a resumed run is bit-identical
-    to an uninterrupted one."""
-    dev = resolve_device(device)
-    scene = scene.to(dev)
-    target = torch.as_tensor(target, dtype=torch.float32).to(dev)
-    flat = _flatten_with_paths(scene)
-    params = {p: v.detach().clone().requires_grad_(True) for p, v in flat.items()
-              if v.is_floating_point() and _selected(p, param_paths)}
-    if not params:
-        raise ValueError(f"optimize_scene: no float leaf matches {param_paths}")
-    rate = lr if callable(lr) else (lambda _step: lr)
-    make = optimizer or (lambda ps, r: torch.optim.Adam(ps, lr=r, eps=1e-8))
-    opt = make(list(params.values()), rate(0))
-
-    def rebuild():
-        merged = {**flat, **params}
-        for path, fn in (param_transform or {}).items():
-            if path in merged:
-                merged[path] = fn(merged[path])
-        return _unflatten_like(scene, merged)
-
+    metrics file is appended to.  A resumed run is bit-identical to an
+    uninterrupted one."""
+    fit = _Fit(scene, textures, cfg, target, param_paths, loss_kind, optimizer, lr,
+               param_transform, device)
     losses, start = [], 0
     if checkpoint_path and resume and os.path.exists(checkpoint_path):
-        start, losses = _restore(checkpoint_path, params, opt)
+        start, losses = _restore(checkpoint_path, fit.params, fit.opt)
 
     n_rays = cfg.width * cfg.height * cfg.supersample ** 2
     metrics_f = open(metrics_path, "a") if metrics_path else None
     try:
         for i in range(start, steps):
             t0 = time.perf_counter()
-            for group in opt.param_groups:
-                group["lr"] = rate(i)
-            opt.zero_grad(set_to_none=True)
-            loss = image_loss(render(rebuild(), textures, cfg, device=dev), target, loss_kind)
-            loss.backward()
-            gnorm = torch.sqrt(sum((p.grad * p.grad).sum() for p in params.values()
-                                   if p.grad is not None))
-            opt.step()
-            val = float(loss.detach())     # fences the step, so wall_s is real
+            loss, gnorm = fit.step(i)
+            val = float(loss)     # fences the step, so wall_s is real
             losses.append(val)
             if metrics_f is not None:
                 wall = time.perf_counter() - t0
@@ -138,16 +223,15 @@ def optimize_scene(scene, textures, cfg, target, steps=100, lr=1e-2, param_paths
                 metrics_f.flush()
             if callback:
                 with torch.no_grad():
-                    callback(i, rebuild(), val)
+                    callback(i, fit.scene(), val)
             if checkpoint_path and checkpoint_every and (
                     (i + 1) % checkpoint_every == 0 or i + 1 == steps):
-                _save(checkpoint_path, params, opt, i + 1, losses)
+                _save(checkpoint_path, fit.params, fit.opt, i + 1, losses)
+        return fit.scene(), losses
     finally:
         if metrics_f is not None:
             metrics_f.close()
-    with torch.no_grad():
-        out = rebuild()
-    return _detach(out), losses
+        fit.close()
 
 
 def _save(path, params, opt, step, losses):
@@ -178,14 +262,17 @@ def _restore(path, params, opt):
     sd = opt.state_dict()
     for i, k in enumerate(params):
         pre = f"opt_state.{k}."
-        entry = {key[len(pre):]: torch.from_numpy(np.array(v)) for key, v in arrays.items()
-                 if key.startswith(pre) and "." not in key[len(pre):]}
+        # contiguous strides even when empty (numpy gives an empty array
+        # zero strides): the fused update wants its parameter's layout
+        entry = {key[len(pre):]: torch.from_numpy(np.array(v)).clone(
+                     memory_format=torch.contiguous_format)
+                 for key, v in arrays.items() if key.startswith(pre) and "." not in key[len(pre):]}
         if entry:
             sd["state"][i] = entry
-    # casts each moment to its parameter's dtype and device, keeps step as saved
+    # casts each moment to its parameter's dtype and device, keeps step as
+    # saved; the hyperparameters stay the run's own (lr: the run's tensor)
+    groups = [dict(g) for g in opt.param_groups]
     opt.load_state_dict(sd)
+    for g, kept in zip(opt.param_groups, groups):
+        g.update(kept)
     return int(arrays["step"]), [float(v) for v in arrays["losses"]]
-
-
-def _detach(scene):
-    return _unflatten_like(scene, {p: v.detach() for p, v in _flatten_with_paths(scene).items()})

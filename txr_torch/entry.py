@@ -76,10 +76,12 @@ def _dryrun_rank(device, n):
     img = render_sharded(scene, textures, cfg, mesh, device=device)
     _check(tuple(img.shape) == (32, 48, 3), f"image shape {tuple(img.shape)}")
 
-    # the full train step: forward, local backward, all_reduce, Adam
-    init, step = make_train_step(textures, cfg, mesh,
-                                 lambda ps: torch.optim.Adam(ps, lr=1e-3, eps=1e-8),
-                                 param_paths=DRYRUN_PARAMS, device=device)
+    # the full train step: forward, local backward, all_reduce, Adam (its
+    # update captured on the card)
+    init, step = make_train_step(
+        textures, cfg, mesh,
+        lambda ps: torch.optim.Adam(ps, lr=1e-3, eps=1e-8, capturable=ps[0].is_cuda),
+        param_paths=DRYRUN_PARAMS, device=device)
     _, _, loss = step(scene, init(scene), img)
     loss = float(loss)
     _check(loss == loss and abs(loss) != float("inf"), f"loss {loss}")

@@ -6,6 +6,7 @@ once per key and replayed (``render/graphs.py``)."""
 from __future__ import annotations
 
 import dataclasses
+import gc
 
 import torch
 import torch.nn.functional as F
@@ -14,7 +15,7 @@ from torch.utils._python_dispatch import _disable_current_modes
 from txr_torch import resolve_device
 from txr_torch.kernels.scene_table import pack_scene
 from txr_torch.render import trace as tr
-from txr_torch.render.graphs import Recorder, TraceProgram
+from txr_torch.render.graphs import Recorder, TraceProgram, _Eager
 from txr_torch.render.intersect import lane_lists, nearest_hit
 from txr_torch.render.raygen import primary_rays, ray_dirs
 from txr_torch.render.texture import with_mips
@@ -269,6 +270,7 @@ class _JitFrame:
         return all(a.data_ptr() == b.data_ptr()
                    for a, b in zip(self.tex, _texture_tensors(textures)))
 
+    @torch.no_grad()
     def _load(self, scene, textures):
         dev = self.rec.device
         groups = {}
@@ -283,53 +285,222 @@ class _JitFrame:
             if dst.data_ptr() != src.data_ptr():
                 dst.copy_(src)
 
+    def _capture(self, run, pieces=()):
+        """The first call: ``run(warm_up=True)`` (every piece once,
+        eagerly: on a side stream on the card), then every program's
+        pieces and ``pieces`` captured → the latter as pieces.  In that
+        order: a piece's graph reads the tensors an earlier capture set
+        (a program's ``out``), not the warm-up's, which are freed."""
+        with _disable_current_modes():
+            self.rec.warm_up(lambda: run(warm_up=True))
+            for p in self.programs:
+                p.capture()
+            pieces = [self.rec.capture(fn) for fn in pieces]
+        self.captured = True
+        return pieces
+
+    def _run(self, warm_up=False):
+        for p in self.programs:
+            p.run(warm_up)
+
     def __call__(self, scene, textures):
         self._load(scene, textures)
         if not self.captured:
-            with _disable_current_modes():
-                self.rec.warm_up(lambda: [p.run(warm_up=True) for p in self.programs])
-                for p in self.programs:
-                    p.capture()
-            self.captured = True
-        for p in self.programs:
-            p.run()
+            self._capture(self._run)
+        self._run()
         return self.programs[-1].out.clone()
+
+
+def _cached_frame(scene, textures, cfg, device, key, make, check=None, take=False):
+    """The frame of ``key`` (``make(scene, textures, device, owned)`` at
+    its first call) → (frame, the textures after ``with_mips``);
+    ``check(leaves, textures)`` first, when given.  ``take``: the frame
+    leaves the cache, the caller's alone (a train frame; ``keep_train_frame``
+    puts it back)."""
+    dev = resolve_device(device)
+    tr._check_route(cfg)
+    given = textures.to(dev)
+    textures = with_mips(given)
+    leaves = flatten_with_paths(scene)
+    if check is not None:
+        check(leaves, textures)
+    key = (key, cfg, dev, tuple((p, tuple(v.shape), v.dtype) for p, v in leaves.items()),
+           _texture_layout(textures))
+    frame = _FRAMES.pop(key, None)
+    if frame is not None and not frame.owned and not frame.reads(textures):
+        # the captured storage is the caller's: capture again on storage of
+        # the frame's own, never writing into the caller's textures
+        frame = make(scene, _copied(textures), dev, True)
+    elif frame is None:
+        # textures built by with_mips in this call are nobody else's
+        frame = make(scene, textures, dev, textures is not given)
+    frame.key = key
+    if not take:
+        _FRAMES[key] = frame
+    return frame, textures
 
 
 def jit_frame(scene, textures, cfg: RenderConfig, device, key, build):
     """The frame of ``key`` (captured at its first call by ``build(frame)``
     → its programs) run on ``scene`` and ``textures`` → a copy of the last
     program's ``out``.  Refuses a call that wants a gradient."""
-    dev = resolve_device(device)
-    tr._check_route(cfg)
-    given = textures.to(dev)
-    textures = with_mips(given)
-    leaves = flatten_with_paths(scene)
-    if torch.is_grad_enabled() and any(
-            v.requires_grad for v in (*leaves.values(), *_texture_tensors(textures))):
-        raise ValueError("render_jit replays a frame without a gradient: a scene or texture "
-                         "leaf requires grad; render() is the differentiable route")
-    key = (key, cfg, dev, tuple((p, tuple(v.shape), v.dtype) for p, v in leaves.items()),
-           _texture_layout(textures))
-    frame = _FRAMES.get(key)
-    if frame is not None and not frame.owned and not frame.reads(textures):
-        # the captured storage is the caller's: capture again on storage of
-        # the frame's own, never writing into the caller's textures
-        del _FRAMES[key]
-        frame = _JitFrame(scene, _copied(textures), build, dev, owned=True)
-    elif frame is None:
-        # textures built by with_mips in this call are nobody else's
-        frame = _JitFrame(scene, textures, build, dev, owned=textures is not given)
-    _FRAMES[key] = frame
+    def check(leaves, textures):
+        if torch.is_grad_enabled() and any(
+                v.requires_grad for v in (*leaves.values(), *_texture_tensors(textures))):
+            raise ValueError("render_jit replays a frame without a gradient: a scene or "
+                             "texture leaf requires grad; render() is the differentiable route")
+
+    frame, textures = _cached_frame(scene, textures, cfg, device, key,
+                                    lambda s, t, d, o: _JitFrame(s, t, build, d, o), check)
     return frame(scene, textures)
 
 
 def clear_jit_cache():
-    """Drop every captured frame, and the device memory its graphs hold."""
+    """Drop every captured frame and the kept train frame, and the device
+    memory their graphs hold (a fit or train state still running keeps its
+    own)."""
     _FRAMES.clear()
+    if torch.cuda.is_initialized():
+        gc.collect()    # a frame's programs point back at it
 
 
-def _frame_program(frame, cfg: RenderConfig):
+def keep_train_frame(frame):
+    """Keep a finished run's train frame for the next run of its key, in
+    place of the train frame kept before: one at most, as a 1080p train
+    frame's graphs hold some 10 GB."""
+    for k in [k for k, f in _FRAMES.items() if isinstance(f, _TrainFrame)]:
+        del _FRAMES[k]
+    _FRAMES[frame.key] = frame
+
+
+class _TrainFrame(_JitFrame):
+    """One key of ``train_frame``: the captured train step's forward, loss,
+    backward and gradient norm, the counterpart of the JAX package's jitted
+    step.  Besides a ``_JitFrame``'s static scene and textures (its
+    programs built with their VJP pieces) it holds the trainable leaves
+    ``params`` ({path: tensor}, static, updated in place by the caller's
+    optimiser), their ``transform``s ({path: fn}, applied as they enter
+    the scene), the ``target`` and ``flat`` = [loss, every parameter's
+    gradient]: ``grads[path]`` views it and is the parameter's ``.grad``.
+    ``step()`` replays: the transform, every program's forward (with its
+    tape), the loss and its cotangent, every program's backward in
+    reverse, the transform's VJP and the gradient norm ``gnorm``."""
+
+    def __init__(self, scene, textures, build, device, owned, paths, transform, loss,
+                 target_shape):
+        super().__init__(scene, textures, build, device, owned)
+        self.params = {p: torch.empty_like(self.leaves[p]) for p in paths}
+        sizes = [v.numel() for v in self.params.values()]
+        self.flat = torch.zeros(1 + sum(sizes), device=device)
+        self.grads = {p: g.view(v.shape) for (p, v), g in
+                      zip(self.params.items(), self.flat[1:].split(sizes))}
+        for p, v in self.params.items():
+            v.grad = self.grads[p]
+        self.transform = {p: fn for p, fn in transform.items() if p in self.params}
+        # the scene leaves' gradients: a parameter's own, unless transformed
+        self.gleaf = {p: torch.zeros_like(g) if p in self.transform else g
+                      for p, g in self.grads.items()}
+        self.target = torch.empty(target_shape, device=device)
+        self.gnorm = torch.zeros((), device=device)
+        self.loss = loss
+        self.pieces = [_Eager(fn) for fn in (self._params_in, self._loss, self._params_out)]
+
+    def trained(self):
+        """{path: static scene leaf} of the trainable leaves."""
+        return {p: self.leaves[p] for p in self.params}
+
+    def leaf_grads(self, grads, add=False):
+        """The gradients of ``trained()``'s leaves, in order (None: none),
+        into the accumulators ``gleaf``: copied (they started from them,
+        ``trace.vjp``'s seeds) or added."""
+        pairs = [(self.gleaf[p], g) for p, g in zip(self.params, grads) if g is not None]
+        if pairs:
+            (torch._foreach_add_ if add else torch._foreach_copy_)(*map(list, zip(*pairs)))
+
+    @torch.no_grad()
+    def load(self, scene, textures, params, target):
+        """The scene's leaves, the textures, the parameters ({path: tensor})
+        and the target into the static buffers; a scene of another topology
+        than the frame's raises."""
+        if [(p, v.shape, v.dtype) for p, v in flatten_with_paths(scene).items()] != [
+                (p, v.shape, v.dtype) for p, v in self.leaves.items()]:
+            raise ValueError("the train step's graphs were captured for a scene of another "
+                             "topology (leaf paths, shapes and types)")
+        self._load(scene, textures)
+        dev = self.rec.device
+        torch._foreach_copy_(list(self.params.values()),
+                             [params[p].to(dev) for p in self.params])
+        self.target.copy_(target)
+
+    def _params_in(self):
+        plain = [p for p in self.params if p not in self.transform]
+        torch._foreach_copy_([self.leaves[p] for p in plain], [self.params[p] for p in plain])
+        for p, fn in self.transform.items():
+            self.leaves[p].copy_(fn(self.params[p]))
+
+    def _loss(self):
+        self.flat.zero_()
+        for g in [self.gleaf[p] for p in self.transform] + [p.g_out for p in self.programs[:-1]]:
+            g.zero_()
+        last = self.programs[-1]
+        with torch.enable_grad():
+            out = last.out.detach().requires_grad_(True)
+            loss = self.loss(self, out)
+            (g,) = torch.autograd.grad(loss, out)
+        last.g_out.copy_(g)
+        self.flat[0].copy_(loss.detach())
+
+    def _params_out(self):
+        for p, fn in self.transform.items():
+            (g,) = tr.vjp(fn, [self.params[p]], [self.gleaf[p]])
+            if g is not None:       # zeroed by _loss
+                self.grads[p].copy_(g)
+        self.gnorm.copy_(torch.linalg.vector_norm(self.flat[1:]))
+
+    def _run(self, warm_up=False):
+        params_in, loss, params_out = self.pieces
+        params_in.replay()
+        tapes = [p.run(warm_up) for p in self.programs]
+        loss.replay()
+        if not warm_up:
+            for p, tape in zip(reversed(self.programs), reversed(tapes)):
+                p.backward(tape)
+        params_out.replay()
+
+    def step(self):
+        """One forward, loss, backward and gradient norm, every piece
+        replayed (captured at the first call): the loss in ``flat[0]``, the
+        gradients in ``grads``.  No host read but the live counts."""
+        if not self.captured:
+            self.pieces = self._capture(
+                self._run, (self._params_in, self._loss, self._params_out))
+        self._run()
+
+
+def train_frame(scene, textures, cfg: RenderConfig, device, key, build, paths, transform,
+                loss, target_shape):
+    """A ``_TrainFrame`` of ``key``, the caller's alone: the one kept by
+    ``keep_train_frame`` when its key matches, else a new one → (frame,
+    textures after ``with_mips``); the caller loads it (``frame.load``).
+    The key adds to ``key`` (the caller's: its kind and loss) ``cfg``, the
+    scene topology, the atlas layout, the trainable ``paths`` and their
+    ``transform``s; the optimiser is the caller's, its update captured per
+    optimiser (``graphs.Recorder.capture_update``).  ``build(frame)`` → the
+    programs (with ``out_shape``), ``loss(frame, out)`` → the scalar loss of
+    the last program's ``out`` against ``frame.target``."""
+    transform = {p: fn for p, fn in transform.items() if p in paths}
+
+    def make(s, t, d, o):
+        if d.type == "cuda":
+            gc.collect()    # the frames of finished runs first: each holds its graphs' pool
+        return _TrainFrame(s, t, build, d, o, paths, transform, loss, target_shape)
+
+    return _cached_frame(scene, textures, cfg, device,
+                         ("train", key, paths, tuple(sorted(transform.items()))), make,
+                         take=True)
+
+
+def _frame_program(frame, cfg: RenderConfig, train=False):
     """``render``'s frame without edge AA as one TraceProgram: the head
     packs the scene table and makes the primary rays in screen-tile order,
     the tail puts the colours back in raster order and averages the
@@ -338,18 +509,21 @@ def _frame_program(frame, cfg: RenderConfig):
     hs, ws = cfg.height * ss, cfg.width * ss
     tiled = hs % TILE_H == 0 and ws % TILE_W == 0
 
-    def rays(p):
+    def prepare(p):
         frame.table = pack_scene(frame.scene, frame.textures.atlas)
-        ro, rd = primary_rays(frame.scene.camera, cfg.width, cfg.height, ss)
-        p.ro, p.rd = (_tile_order(ro, hs, ws), _tile_order(rd, hs, ws)) if tiled else (ro, rd)
 
-    def finish(p):
-        p.out = image(_untile_order(p.color, hs, ws) if tiled else p.color, cfg)
+    def rays(p, scene):
+        ro, rd = primary_rays(scene.camera, cfg.width, cfg.height, ss)
+        return (_tile_order(ro, hs, ws), _tile_order(rd, hs, ws)) if tiled else (ro, rd)
 
-    return TraceProgram(frame, cfg, hs * ws, rays, finish, frame.rec)
+    def finish(p, color, _):
+        return image(_untile_order(color, hs, ws) if tiled else color, cfg)
+
+    return TraceProgram(frame, cfg, hs * ws, rays, finish, frame.rec, prepare=prepare,
+                        out_shape=(cfg.height, cfg.width, 3) if train else None)
 
 
-def _edge_program(frame, cfg: RenderConfig, base):
+def _edge_program(frame, cfg: RenderConfig, base, train=False):
     """The edge-AA pass over ``base``'s image as one TraceProgram: the head
     picks the budget's K pixels (``_edge_pixels_fixed``) and makes their
     K·k² sub-sample rays, fills included; the tail averages each pixel's
@@ -357,14 +531,31 @@ def _edge_program(frame, cfg: RenderConfig, base):
     fills."""
     H, W, k = cfg.height, cfg.width, cfg.supersample
 
-    def rays(p):
+    def prepare(p):
         p.pix = _edge_pixels_fixed(base.out, cfg)
-        p.ro, p.rd = _subpixel_rays(frame.scene.camera, torch.clamp(p.pix, max=H * W - 1), cfg)
 
-    def finish(p):
-        p.out = _write_pixels(base.out, p.pix, _pixel_mean(p.color, k * k))
+    def rays(p, scene):
+        return _subpixel_rays(scene.camera, torch.clamp(p.pix, max=H * W - 1), cfg)
 
-    return TraceProgram(frame, cfg, _edge_budget(cfg) * k * k, rays, finish, frame.rec)
+    def finish(p, color, base_out):
+        return _write_pixels(base_out, p.pix, _pixel_mean(color, k * k))
+
+    return TraceProgram(frame, cfg, _edge_budget(cfg) * k * k, rays, finish, frame.rec,
+                        prepare=prepare, prev=base, out_shape=(H, W, 3) if train else None)
+
+
+def frame_programs(cfg: RenderConfig, train=False):
+    """``build(frame)`` of ``render``'s frame: one program, or with edge AA
+    the 1-spp frame and its edge pass; with ``train``, each with its VJP
+    pieces (a train frame's)."""
+    if cfg.aa_mode == "edge" and cfg.supersample > 1:
+        def build(frame):
+            base = _frame_program(frame, dataclasses.replace(cfg, supersample=1), train)
+            return [base, _edge_program(frame, cfg, base, train)]
+    else:
+        def build(frame):
+            return [_frame_program(frame, cfg, train)]
+    return build
 
 
 @program
@@ -391,11 +582,4 @@ def render_jit(scene, textures, cfg: RenderConfig, device=None):
     No gradient: a call with grad mode on and a leaf that requires grad
     raises, and a failed capture raises; neither falls back to
     ``render``."""
-    if cfg.aa_mode == "edge" and cfg.supersample > 1:
-        def build(frame):
-            base = _frame_program(frame, dataclasses.replace(cfg, supersample=1))
-            return [base, _edge_program(frame, cfg, base)]
-    else:
-        def build(frame):
-            return [_frame_program(frame, cfg)]
-    return jit_frame(scene, textures, cfg, device, "render", build)
+    return jit_frame(scene, textures, cfg, device, "render", frame_programs(cfg))

@@ -425,24 +425,99 @@ class _StepSpec:
     tex_paths: tuple
 
 
+def vjp(fn, inputs, cotangents, need=None, seeds=None):
+    """The VJP of ``fn`` by recomputation: ``fn(*inputs)`` (a tensor or a
+    tuple of them) runs again under ``enable_grad`` with each input whose
+    ``need`` holds (default: every floating input) a fresh leaf, then
+    ``torch.autograd.grad`` pulls ``cotangents`` (one per output, None for
+    none) back → the inputs' gradients in order, None where not wanted or
+    not reached.  ``seeds`` {input index: tensor}: a gradient that input
+    starts from, its share of the other contributions added on one at a
+    time, in autograd's order, as one backward over many pieces adds them
+    (float32 sums associate), so that the pieces' gradient equals that
+    backward's bit for bit.  That leans on a detail of PyTorch's autograd
+    engine, that of the outputs' branches it runs the one made last first
+    (the seed's view), which
+    tests/test_torch_train_jit.py::test_vjp_seeds_keep_autograds_order
+    holds.  Every backward of the captured train step
+    (``render/graphs.py``) is one of these."""
+    if need is None:
+        need = [x.is_floating_point() for x in inputs]
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(n) if x.is_floating_point() else x
+              for x, n in zip(inputs, need)]
+        outs = fn(*xs)
+        outs = tuple(outs) if isinstance(outs, (tuple, list)) else (outs,)
+        cotangents = list(cotangents) + [None] * (len(outs) - len(cotangents))
+        # views made last, so autograd runs them first: the seeds arrive first
+        for i, seed in (seeds or {}).items():
+            outs += (xs[i].view_as(xs[i]),)
+            cotangents.append(seed)
+        pairs = [(o, g) for o, g in zip(outs, cotangents) if g is not None and o.requires_grad]
+        wrt = [x for x, n in zip(xs, need) if n]
+        grads = (torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                     allow_unused=True) if pairs and wrt else [None] * len(wrt))
+    it = iter(grads)
+    return [next(it) if n else None for n in need]
+
+
+def step_saving(scene, textures, cfg, st, table):
+    """One bounce step of ``cfg``'s route, without a gradient → (the next
+    state, the residuals its VJP needs besides the input state: the probe's
+    ``_SAVE_KEYS`` on the probe route, None on the eager route, whose VJP
+    runs the sweeps again)."""
+    if cfg.fused == "off":
+        return step_jnp(scene, textures, cfg, st, table=table), None
+    pr = _probe(scene, textures, cfg, st["ro"], st["rd"], shade_flipped=True, table=table,
+                alive=st["alive"])
+    out = fused_step_fwd(scene, textures, cfg, st, pr=pr, table=table)
+    return out, {k: pr[k] for k in _SAVE_KEYS}
+
+
+def step_vjp(scene, textures, cfg, table, st, saved, g_out, leaves, need=None, seeds=None):
+    """The VJP of one bounce step (txr/render/trace.py:1035-1332, the loop
+    VJP's step): ``step_jnp`` recomputed from the step's input state ``st``
+    — in saved mode from the probe's residuals ``saved`` (probe route), with
+    its sweeps when ``saved`` is None (eager route) — then the gradients.
+    ``g_out``: {key of ``_FLOAT_STATE``: the cotangent of the step's output,
+    or None}; ``leaves``: {path: tensor}, scene paths and ``atlas.texels`` /
+    ``ring_alpha``, read in place of the scene's and textures' own;
+    ``need``: one bool for each of ``_FLOAT_STATE`` then each leaf (default
+    all) → that list of gradients, None where not wanted or not reached;
+    ``seeds``: the gradient each leaf starts from (``vjp``), or None.
+    ``_FusedStep.backward`` and the captured train step's backward pieces
+    (``graphs.TraceUnit``) share it."""
+    paths = list(leaves)
+
+    def fn(*xs):
+        x = dict(st, **dict(zip(_FLOAT_STATE, xs)))
+        lv = dict(zip(paths, xs[len(_FLOAT_STATE):]))
+        out = step_jnp(unflatten_like(scene, lv), _with_texture_leaves(textures, lv), cfg, x,
+                       saved=saved, table=table)
+        return tuple(out[k] for k in _FLOAT_STATE)
+
+    inputs = [st[k] for k in _FLOAT_STATE] + list(leaves.values())
+    n = len(_FLOAT_STATE)
+    return vjp(fn, inputs, [g_out.get(k) for k in _FLOAT_STATE],
+               [True] * len(inputs) if need is None else need,
+               {} if seeds is None else {n + i: g for i, g in enumerate(seeds)})
+
+
 class _FusedStep(torch.autograd.Function):
     """One probe-route step.  Forward: the probe kernel and the consume
-    (``fused_step_fwd``), saving the step's input state and the probe's
+    (``step_saving``), saving the step's input state and the probe's
     piecewise-constant subset (slot, t, light_solid, ring_hit, ring_uv).
-    Backward: ``step_jnp`` in saved mode under ``enable_grad``, then
-    ``torch.autograd.grad`` for the inputs that need it — the sweeps are
+    Backward: ``step_vjp``, ``step_jnp`` in saved mode — the sweeps are
     never re-run."""
 
     @staticmethod
     def forward(ctx, spec, *tensors):
         st = dict(zip(STATE_KEYS, tensors))
-        pr = _probe(spec.scene, spec.textures, spec.cfg, st["ro"], st["rd"],
-                    shade_flipped=True, table=spec.table, alive=st["alive"])
-        out = fused_step_fwd(spec.scene, spec.textures, spec.cfg, st, pr=pr, table=spec.table)
+        out, saved = step_saving(spec.scene, spec.textures, spec.cfg, st, spec.table)
         ctx.spec = spec
-        ctx.has_rings = pr["ring_hit"] is not None
+        ctx.has_rings = saved["ring_hit"] is not None
         # copies: the probe's rows are views of its whole [NF, N] output
-        saves = [pr[k].clone() for k in _SAVE_KEYS if pr[k] is not None]
+        saves = [saved[k].clone() for k in _SAVE_KEYS if saved[k] is not None]
         ctx.save_for_backward(*tensors, *saves)
         res = tuple(out[k] for k in STATE_KEYS)
         ctx.mark_non_differentiable(*res[5:])
@@ -451,33 +526,18 @@ class _FusedStep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *g_out):
         spec = ctx.spec
-        n_st = len(STATE_KEYS)
-        n_leaf = len(spec.scene_paths) + len(spec.tex_paths)
+        n_st, n_fl = len(STATE_KEYS), len(_FLOAT_STATE)
+        n_in = n_st + len(spec.scene_paths) + len(spec.tex_paths)
         saved_t = ctx.saved_tensors
-        ins, saves = saved_t[:n_st + n_leaf], saved_t[n_st + n_leaf:]
+        ins, saves = saved_t[:n_in], saved_t[n_in:]
         keys = _SAVE_KEYS if ctx.has_rings else _SAVE_KEYS[:3]
-        saved = dict(zip(keys, saves), **({} if ctx.has_rings else
-                                          dict(ring_hit=None, ring_uv=None)))
+        saved = dict(dict.fromkeys(_SAVE_KEYS), **dict(zip(keys, saves)))
         need = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            x = [a.detach().requires_grad_(n) if a.is_floating_point() else a
-                 for a, n in zip(ins, need)]
-            st = dict(zip(STATE_KEYS, x[:n_st]))
-            leaves = x[n_st:]
-            scene = unflatten_like(spec.scene, dict(zip(spec.scene_paths, leaves)))
-            textures = _with_texture_leaves(
-                spec.textures, dict(zip(spec.tex_paths, leaves[len(spec.scene_paths):])))
-            out = step_jnp(scene, textures, spec.cfg, st, saved=saved, table=spec.table)
-            outs, gs = [], []
-            for k, g in zip(STATE_KEYS, g_out):
-                if k in _FLOAT_STATE and g is not None and out[k].requires_grad:
-                    outs.append(out[k])
-                    gs.append(g)
-            wrt = [a for a, n in zip(x, need) if n]
-            grads = (torch.autograd.grad(outs, wrt, gs, allow_unused=True) if outs
-                     else [None] * len(wrt))
-        grads = iter(grads)
-        return (None,) + tuple(next(grads) if n else None for n in need)
+        grads = step_vjp(spec.scene, spec.textures, spec.cfg, spec.table,
+                         dict(zip(STATE_KEYS, ins[:n_st])), saved, dict(zip(STATE_KEYS, g_out)),
+                         dict(zip(spec.scene_paths + spec.tex_paths, ins[n_st:])),
+                         need[:n_fl] + need[n_st:])
+        return (None, *grads[:n_fl], *[None] * (n_st - n_fl), *grads[n_fl:])
 
 
 def _fused_step(scene, textures, cfg, st, table):
@@ -532,6 +592,22 @@ def shade_misses(scene, textures, st):
     shapes, no host read)."""
     env = _background(scene, textures, st["rd"])
     return st["color"] + env * torch.where(st["missed"][..., None], st["mask"], 0.0)
+
+
+def shade_misses_vjp(scene, textures, st, g, leaves, seeds):
+    """The VJP of ``shade_misses`` at the final state ``st``: the colours'
+    cotangent g [R, 3] → ({color, mask, rd: the state's cotangent}, the
+    gradient of each of ``leaves`` ({scene path: tensor}), each started
+    from its ``seeds`` entry (``vjp``))."""
+    keys, paths = ("color", "mask", "rd"), list(leaves)
+
+    def fn(*xs):
+        return shade_misses(unflatten_like(scene, dict(zip(paths, xs[3:]))), textures,
+                            dict(st, **dict(zip(keys, xs))))
+
+    grads = vjp(fn, [st[k] for k in keys] + list(leaves.values()), [g],
+                seeds={3 + i: s for i, s in enumerate(seeds)})
+    return dict(zip(keys, grads)), grads[3:]
 
 
 @program
