@@ -1,4 +1,4 @@
-"""The port's debug channels, NaN checks and timers vs the JAX package.
+"""The port's debug channels and NaN checks vs the JAX package.
 
 ``render_debug`` at bounce 0 and 1 on test_grads' SCENE2 (a hollow glass
 sphere, a one-sided plane, a textured ring; no torus, so no lane's winner
@@ -19,7 +19,6 @@ renderer that makes a NaN or an Inf raises at once.
 """
 
 import dataclasses
-import time
 
 import jax
 import numpy as np
@@ -35,7 +34,6 @@ from txr_torch.render.render import render, render_debug
 from txr_torch.render.trace import RenderConfig
 from txr_torch.scene.types import float_leaves
 from txr_torch.utils import debug
-from txr_torch.utils.profiling import FrameTimer, timed
 
 # one intra-op thread: parallel test workers share the cores
 torch.set_num_threads(1)
@@ -147,20 +145,3 @@ def test_nan_checks(fused):
         debug.disable_nan_checks()
     assert not torch.is_anomaly_enabled()
     torch.zeros(3) / torch.zeros(3)           # off again
-
-
-def test_frame_timer_and_timed():
-    lines = []
-    timer = FrameTimer(rays_per_frame=100, interval=0.0, log=lines.append)
-    for _ in range(3):
-        timer.frame(torch.ones(2))
-        time.sleep(0.01)
-    assert len(timer.history) == 2 and all(0 < f < 200 for f in timer.history)
-    assert lines[0].startswith("FPS: ") and "rays/s" in lines[0]
-    sink = {}
-    with timed("nap", sink=sink):
-        time.sleep(0.01)
-    assert 0.005 < sink["nap"] < 1.0
-    with timed("nap", log=lines.append):
-        pass
-    assert lines[-1].startswith("nap: ") and lines[-1].endswith(" ms")

@@ -33,6 +33,7 @@ from txr_torch.geometry import quaternion as quat
 from txr_torch.render.texture import TextureSet
 from txr_torch.scene import surface_factory as sf
 from txr_torch.scene.factories import SceneBuilder
+from txr_torch.utils.profiling import span
 
 SATURN_RADIUS = 4150.0
 SATURN_PITCH = quat.from_euler([math.radians(15.0), 0.0, 0.0])
@@ -233,6 +234,11 @@ def update_scene(scene, handles: DemoHandles, dt, t):
     """The scene at time ``t`` after a frame of ``dt`` seconds: a new scene,
     the input untouched (txr/apps/demo.py:233-287).  ``dt`` and ``t`` are
     floats or tensors; the result lives on the scene's device."""
+    with span("txr.pose"):
+        return _posed(scene, handles, dt, t)
+
+
+def _posed(scene, handles, dt, t):
     dev = scene.device
     # the frame's angles, then the spin axes and Saturn's pitch, in one copy
     u = _on_device([t * 0.02, t * 0.0082 + 1.0, t * 0.05 + 0.5, t * 0.05,

@@ -21,6 +21,7 @@ from txr_torch.render.render import frame_programs, keep_train_frame, render, tr
 from txr_torch.scene.types import flatten_with_paths as _flatten_with_paths
 from txr_torch.scene.types import unflatten_like as _unflatten_like
 from txr_torch.utils.checkpoint import load_arrays, rebuild_tree, save_state
+from txr_torch.utils.profiling import unit
 
 
 def image_loss(img, target, kind="l2"):
@@ -145,14 +146,15 @@ class _Fit:
     def step(self, i):
         """Step ``i`` → (loss, gradient norm), 0-dim tensors on the device;
         the gradients stay in each parameter's ``.grad``."""
-        self.lr.fill_(self.rate(i))
-        if not self.captured:
-            return _eager_step(self)
-        self.frame.step()
-        if self.update is None:
-            self.update = self.frame.rec.capture_update(self.opt)
-        self.update.replay()
-        return self.frame.flat[0], self.frame.gnorm
+        with unit("txr.train_step"):
+            self.lr.fill_(self.rate(i))
+            if not self.captured:
+                return _eager_step(self)
+            self.frame.step()
+            if self.update is None:
+                self.update = self.frame.rec.capture_update(self.opt)
+            self.update.replay()
+            return self.frame.flat[0], self.frame.gnorm
 
 
 def _eager_step(fit):

@@ -36,6 +36,7 @@ from txr_torch.render.render import image, jit_frame, train_frame
 from txr_torch.render.texture import with_mips
 from txr_torch.render.trace import trace
 from txr_torch.scene.types import flatten_with_paths, unflatten_like
+from txr_torch.utils.profiling import unit
 
 
 def _pad_to(x, multiple):
@@ -169,18 +170,19 @@ def make_train_step(textures, cfg, mesh, optimizer, param_paths=None, device=Non
         return TrainState(frame.params, optimizer(list(frame.params.values())), frame)
 
     def step(scene, state, target):
-        scene = scene.to(dev)
-        frame = state.frame
-        tgt = torch.as_tensor(target, dtype=torch.float32).to(dev).reshape(-1, 3)
-        frame.load(scene, tex, split(scene), _block(_pad_to(tgt, mesh.size)[0], mesh))
-        # the local loss and its partial gradients: no collective in here
-        frame.step()
-        # one all_reduce of the loss and every gradient, in one flat buffer
-        frame.flat.copy_(all_reduce_sum(frame.flat) / (3.0 * n))
-        if state.update is None:
-            state.update = frame.rec.capture_update(state.optimizer)
-        state.update.replay()
-        new = {p: v.detach().clone() for p, v in state.params.items()}
-        return unflatten_like(scene, new), state, frame.flat[0].clone()
+        with unit("txr.train_step"):
+            scene = scene.to(dev)
+            frame = state.frame
+            tgt = torch.as_tensor(target, dtype=torch.float32).to(dev).reshape(-1, 3)
+            frame.load(scene, tex, split(scene), _block(_pad_to(tgt, mesh.size)[0], mesh))
+            # the local loss and its partial gradients: no collective in here
+            frame.step()
+            # one all_reduce of the loss and every gradient, in one flat buffer
+            frame.flat.copy_(all_reduce_sum(frame.flat) / (3.0 * n))
+            if state.update is None:
+                state.update = frame.rec.capture_update(state.optimizer)
+            state.update.replay()
+            new = {p: v.detach().clone() for p, v in state.params.items()}
+            return unflatten_like(scene, new), state, frame.flat[0].clone()
 
     return init, step

@@ -3,8 +3,12 @@
 ``render/fused.py``'s), their build and the packed scene table they
 read."""
 
+import functools
 
+
+@functools.cache
 def _counters():
+    """{kernel: its wrapper}, built once (a graph replay adds to them)."""
     from txr_torch.kernels import nearest_hit, shadow_sweep, step_consume, step_probe
 
     return dict(step_probe=step_probe.step_probe, glossy_rays=step_consume.launch_rays,

@@ -52,6 +52,8 @@ from txr_torch.kernels import add_launch_counts, launch_counts
 from txr_torch.render import trace as tr
 from txr_torch.render.intersect import fixed_shapes
 from txr_torch.scene.types import unflatten_like
+from txr_torch.utils import profiling
+from txr_torch.utils.profiling import count, span
 
 
 def _run(fn):
@@ -344,12 +346,16 @@ class TraceUnit:
                 self.g[k][:R].copy_(gk)
         f.leaf_grads(grads)
 
-    def warm_up(self):
-        """Every piece once, each step at every capacity (before a capture)."""
+    def warm_up(self, ro, rd, color):
+        """Every piece once, each step at every capacity (before a capture),
+        on the rays ``ro``, ``rd``, the colours out into ``color``."""
+        self.ro.copy_(ro)
+        self.rd.copy_(rd)
         self.head.replay()
         for step in self.steps.values():
             step.replay()
         self.tail.replay()
+        color.copy_(self.color)
         if self.train:
             self.tail_bwd.replay()
             for step in self.steps_bwd.values():
@@ -358,34 +364,56 @@ class TraceUnit:
     def capture(self):
         self._pieces(self.rec.capture)
 
-    def _live_after(self, k):
-        if self.events is not None:
-            self.events[k].synchronize()
-        return int(self.counts[k])
+    def _live_after(self, k, name="txr.wait_live"):
+        with span(name):
+            if self.events is not None:
+                self.events[k].synchronize()
+            return int(self.counts[k])
 
-    def run(self):
-        """Head, steps until no lane lives (seen one step late) or
-        ``cfg.max_steps`` ran, each at the least capacity that holds the
-        live lanes counted one step late, tail.  With ``train`` → the tape
-        of ``backward``: (the capacities of the steps that saw a live lane,
+    def run(self, ro, rd, color):
+        """The rays ``ro``, ``rd`` [R, 3] in, head, steps until no lane lives
+        (seen one step late) or ``cfg.max_steps`` ran, each at the least
+        capacity that holds the live lanes counted one step late, tail, the
+        colours out into ``color`` [R, 3].  With ``train`` → the tape of
+        ``backward``: (the capacities of the steps that saw a live lane,
         each one's stage copied out, the final state copied out); the step
-        after the last live one changed nothing, so it has no VJP to run."""
-        self.head.replay()
+        after the last live one changed nothing, so it has no VJP to run.
+        With the tracer on, each step adds its live lanes, capacity and 1
+        to the counters ``lanes``, ``rows`` and ``steps``: the count it
+        reads one step late is the lanes entering the step before."""
+        traced = profiling.enabled()
+        with span("txr.head"):
+            self.ro.copy_(ro)
+            self.rd.copy_(rd)
+            self.head.replay()
         self.steps_run, saves = [], []
-        for k in range(self.cfg.max_steps):
+        steps = self.cfg.max_steps
+        for k in range(steps):
             live = self.R if k < 2 else self._live_after(k - 2)
+            if traced and k != 1:
+                # the lanes entering step k − 1 (k = 0: every ray of step 0)
+                count("lanes", live)
             if not live:
                 del saves[-1:]
                 break
-            C = min(c for c in self.caps if c >= live)
-            self.steps[C].replay()
-            self.counts[k].copy_(self.live[C], non_blocking=True)
-            if self.events is not None:
-                self.events[k].record()
+            with span("txr.step"):
+                C = min(c for c in self.caps if c >= live)
+                self.steps[C].replay()
+                self.counts[k].copy_(self.live[C], non_blocking=True)
+                if self.events is not None:
+                    self.events[k].record()
             self.steps_run.append(C)
+            if traced:
+                count("rows", C)
+                count("steps", 1)
             if self.train:
                 saves.append((C, self.stage[C].buf.clone()))
-        self.tail.replay()
+        with span("txr.tail"):
+            self.tail.replay()
+            color.copy_(self.color)
+        if traced and len(self.steps_run) == steps > 1:
+            # the loop stopped at max_steps: the last step's lanes are unread
+            count("lanes", self._live_after(steps - 2, "txr.wait_last"))
         if self.train:
             return saves, self.state.buf.clone()
 
@@ -473,15 +501,15 @@ class TraceProgram:
         and then the program's VJP pieces), tail → each chunk's tape (a
         train frame's program)."""
         head, tail = self.pieces[:2]
-        head.replay()
+        with span("txr.head"):
+            head.replay()
         tapes = []
         for o, R in self.chunks:
             unit = self.units[R]
-            unit.ro.copy_(self.ro[o:o + R])
-            unit.rd.copy_(self.rd[o:o + R])
-            tapes.append(unit.warm_up() if warm_up else unit.run())
-            self.color[o:o + R].copy_(unit.color)
-        tail.replay()
+            run = unit.warm_up if warm_up else unit.run
+            tapes.append(run(self.ro[o:o + R], self.rd[o:o + R], self.color[o:o + R]))
+        with span("txr.tail"):
+            tail.replay()
         if warm_up and self.train:
             for piece in self.pieces[2:]:
                 piece.replay()

@@ -23,6 +23,7 @@ from txr_torch.render.texture import TextureSet
 from txr_torch.render.trace import RenderConfig, trace
 from txr_torch.scene.types import flatten_with_paths, unflatten_like
 from txr_torch.utils.debug import program
+from txr_torch.utils.profiling import count, span, unit
 
 # Screen tiles of 8 rows × 64 columns: rays of one tile sit together, so the
 # lanes a step still works on cluster into compact screen rectangles.
@@ -273,17 +274,18 @@ class _JitFrame:
     @torch.no_grad()
     def _load(self, scene, textures):
         dev = self.rec.device
-        groups = {}
-        for p, v in flatten_with_paths(scene).items():
-            dst = self.leaves[p]
-            pair = groups.setdefault(dst.dtype, ([], []))
-            pair[0].append(dst)
-            pair[1].append(v.to(dev))
-        for dsts, srcs in groups.values():
-            torch._foreach_copy_(dsts, srcs)
-        for dst, src in zip(self.tex, _texture_tensors(textures)):
-            if dst.data_ptr() != src.data_ptr():
-                dst.copy_(src)
+        with span("txr.load"):
+            groups = {}
+            for p, v in flatten_with_paths(scene).items():
+                dst = self.leaves[p]
+                pair = groups.setdefault(dst.dtype, ([], []))
+                pair[0].append(dst)
+                pair[1].append(v.to(dev))
+            for dsts, srcs in groups.values():
+                torch._foreach_copy_(dsts, srcs)
+            for dst, src in zip(self.tex, _texture_tensors(textures)):
+                if dst.data_ptr() != src.data_ptr():
+                    dst.copy_(src)
 
     def _capture(self, run, pieces=()):
         """The first call: ``run(warm_up=True)`` (every piece once,
@@ -291,11 +293,12 @@ class _JitFrame:
         pieces and ``pieces`` captured → the latter as pieces.  In that
         order: a piece's graph reads the tensors an earlier capture set
         (a program's ``out``), not the warm-up's, which are freed."""
-        with _disable_current_modes():
+        with span("txr.capture"), _disable_current_modes():
             self.rec.warm_up(lambda: run(warm_up=True))
             for p in self.programs:
                 p.capture()
             pieces = [self.rec.capture(fn) for fn in pieces]
+        count("captures", 1)
         self.captured = True
         return pieces
 
@@ -308,7 +311,8 @@ class _JitFrame:
         if not self.captured:
             self._capture(self._run)
         self._run()
-        return self.programs[-1].out.clone()
+        with span("txr.out"):
+            return self.programs[-1].out.clone()
 
 
 def _cached_frame(scene, textures, cfg, device, key, make, check=None, take=False):
@@ -317,42 +321,45 @@ def _cached_frame(scene, textures, cfg, device, key, make, check=None, take=Fals
     ``check(leaves, textures)`` first, when given.  ``take``: the frame
     leaves the cache, the caller's alone (a train frame; ``keep_train_frame``
     puts it back)."""
-    dev = resolve_device(device)
-    tr._check_route(cfg)
-    given = textures.to(dev)
-    textures = with_mips(given)
-    leaves = flatten_with_paths(scene)
-    if check is not None:
-        check(leaves, textures)
-    key = (key, cfg, dev, tuple((p, tuple(v.shape), v.dtype) for p, v in leaves.items()),
-           _texture_layout(textures))
-    frame = _FRAMES.pop(key, None)
-    if frame is not None and not frame.owned and not frame.reads(textures):
-        # the captured storage is the caller's: capture again on storage of
-        # the frame's own, never writing into the caller's textures
-        frame = make(scene, _copied(textures), dev, True)
-    elif frame is None:
-        # textures built by with_mips in this call are nobody else's
-        frame = make(scene, textures, dev, textures is not given)
-    frame.key = key
-    if not take:
-        _FRAMES[key] = frame
-    return frame, textures
+    with span("txr.key"):
+        dev = resolve_device(device)
+        tr._check_route(cfg)
+        given = textures.to(dev)
+        textures = with_mips(given)
+        leaves = flatten_with_paths(scene)
+        if check is not None:
+            check(leaves, textures)
+        key = (key, cfg, dev, tuple((p, tuple(v.shape), v.dtype) for p, v in leaves.items()),
+               _texture_layout(textures))
+        frame = _FRAMES.pop(key, None)
+        if frame is not None and not frame.owned and not frame.reads(textures):
+            # the captured storage is the caller's: capture again on storage
+            # of the frame's own, never writing into the caller's textures
+            frame = make(scene, _copied(textures), dev, True)
+        elif frame is None:
+            # textures built by with_mips in this call are nobody else's
+            frame = make(scene, textures, dev, textures is not given)
+        frame.key = key
+        if not take:
+            _FRAMES[key] = frame
+        return frame, textures
 
 
 def jit_frame(scene, textures, cfg: RenderConfig, device, key, build):
     """The frame of ``key`` (captured at its first call by ``build(frame)``
     → its programs) run on ``scene`` and ``textures`` → a copy of the last
-    program's ``out``.  Refuses a call that wants a gradient."""
+    program's ``out``.  Refuses a call that wants a gradient.  One unit of
+    the tracer (``utils.profiling``), its root span ``txr.frame``."""
     def check(leaves, textures):
         if torch.is_grad_enabled() and any(
                 v.requires_grad for v in (*leaves.values(), *_texture_tensors(textures))):
             raise ValueError("render_jit replays a frame without a gradient: a scene or "
                              "texture leaf requires grad; render() is the differentiable route")
 
-    frame, textures = _cached_frame(scene, textures, cfg, device, key,
-                                    lambda s, t, d, o: _JitFrame(s, t, build, d, o), check)
-    return frame(scene, textures)
+    with unit("txr.frame"):
+        frame, textures = _cached_frame(scene, textures, cfg, device, key,
+                                        lambda s, t, d, o: _JitFrame(s, t, build, d, o), check)
+        return frame(scene, textures)
 
 
 def clear_jit_cache():
