@@ -2,7 +2,11 @@
 
 ``update_scene`` against JAX's at several (dt, t), leaf by leaf within
 1e-5 relative (float32 cos/sin of the same float32 arguments, planet
-positions up to 35,000 units); ``parse_flight`` against JAX's; a
+positions up to 35,000 units); its pose program (``Recorder``'s eager
+piece on the CPU) against the eager ``_pose`` bit for bit, a fresh scene
+at each call and the input untouched, the eager route of a tensor ``t``
+or a leaf that wants a gradient with that gradient, the tracer's pose
+counters; ``parse_flight`` against JAX's; a
 ``FlyCamera`` key and mouse sequence against JAX's, position and
 quaternion within 1e-6; the port's PNG writer and reader against PIL (in
 both directions, every PNG filter type); ``main(["--device", "cpu",
@@ -26,7 +30,7 @@ from txr.scene.camera import FlyCamera as JFlyCamera
 from txr_torch import bridge
 from txr_torch.apps import demo as tdemo
 from txr_torch.scene.camera import FlyCamera
-from txr_torch.utils import image
+from txr_torch.utils import image, profiling
 
 # one intra-op thread: parallel test workers share the cores
 torch.set_num_threads(1)
@@ -53,6 +57,88 @@ def test_update_scene_matches_jax(dt, t):
     assert moved == 5            # spheres.pos, spheres.quat, rings.pos, boxes.quat, toruses.quat
     np.testing.assert_array_equal(bridge.scene_to_numpy(tscene)[".spheres.pos"],
                                   before[".spheres.pos"])         # out of place
+
+
+def _eager_pose(scene, handles, dt, t):
+    """The eager ``_pose`` of the scene's leaves → the posed leaves."""
+    flat = tdemo._pose_eagerly(tdemo._pose_leaves(scene), handles, dt, t, scene.device)
+    return tdemo._pose_leaves(tdemo._with_posed(scene, flat))
+
+
+@pytest.mark.parametrize("dt,t", [(1 / 30, 60.0), (0.25, 0.0), (0.01, 1234.5)])
+def test_pose_program_matches_eager_pose(dt, t):
+    scene, h = tdemo.build_scene(8, 8)
+    got = tdemo.update_scene(scene, h, dt, t)
+    prog = tdemo._POSE
+    assert prog is not None and prog.leaves[0] is scene.spheres.pos
+    for a, b in zip(tdemo._pose_leaves(got), _eager_pose(scene, h, dt, t)):
+        assert torch.equal(a, b)
+    # the same input scene keeps its program; another pose replays it
+    tdemo.update_scene(scene, h, dt, t + 1.0)
+    assert tdemo._POSE is prog
+
+
+def test_poses_are_fresh_and_leave_the_input_untouched():
+    scene, h = tdemo.build_scene(8, 8)
+    before = bridge.scene_to_numpy(scene)
+    first = tdemo.update_scene(scene, h, 1 / 30, 60.0)
+    kept = [x.clone() for x in tdemo._pose_leaves(first)]
+    second = tdemo.update_scene(scene, h, 1 / 30, 60.5)
+    for a, b, k in zip(tdemo._pose_leaves(first), tdemo._pose_leaves(second), kept):
+        assert a.untyped_storage().data_ptr() != b.untyped_storage().data_ptr()
+        assert torch.equal(a, k)                  # the second pose wrote elsewhere
+    assert not torch.equal(first.spheres.pos, second.spheres.pos)
+    assert first.camera is scene.camera and first.planes is scene.planes
+    after = bridge.scene_to_numpy(scene)
+    for k, v in before.items():
+        np.testing.assert_array_equal(after[k], v, err_msg=k)
+
+
+def _orbit_grad(t):
+    """d/dt of the sum of the spheres' positions (float64)."""
+    a = [(0.02, 0.0, 20000.0), (0.0082, 1.0, 35000.0), (0.05, 0.5, 10000.0)]
+    d = sum(r * w * (np.cos(w * t + o) - np.sin(w * t + o)) for w, o, r in a)
+    return d + 3000.0 * 0.05 * np.sin(0.05 * t)
+
+
+@pytest.mark.parametrize("route", ["tensor_t", "grad_leaf"])
+def test_tensor_or_gradient_poses_eagerly(route):
+    scene, h = tdemo.build_scene(8, 8)
+    tdemo._POSE = None
+    if route == "tensor_t":
+        t = torch.tensor(60.0, dtype=torch.float32, requires_grad=True)
+        got = tdemo.update_scene(scene, h, 1 / 30, t)
+        got.spheres.pos.sum().backward()
+        np.testing.assert_allclose(float(t.grad), _orbit_grad(60.0), rtol=1e-4)
+    else:
+        q = scene.spheres.quat.clone().requires_grad_()
+        leafy = dataclasses.replace(scene, spheres=dataclasses.replace(scene.spheres, quat=q))
+        got = tdemo.update_scene(leafy, h, 1 / 30, 60.0)
+        for a, b in zip(tdemo._pose_leaves(got), _eager_pose(scene, h, 1 / 30, 60.0)):
+            assert torch.equal(a.detach(), b)
+        got.spheres.quat.sum().backward()
+        # a still row passes its gradient on whole; a spun one through the spin
+        still = [i for i in range(len(q)) if i not in (h.jupiter, h.saturn, h.mars)]
+        assert torch.equal(q.grad[still], torch.ones_like(q.grad[still]))
+        assert not torch.equal(q.grad[h.saturn], torch.ones(4))
+    assert got.spheres.pos.grad_fn is not None and tdemo._POSE is None
+
+
+def test_pose_counters():
+    scene, h = tdemo.build_scene(8, 8)
+    was = profiling.tracing(True)
+    profiling.reset()
+    try:
+        for t in (60.0, 60.5, torch.tensor(61.0)):
+            tdemo.update_scene(scene, h, 0.0, t)
+        with profiling.unit("txr.frame"):
+            pass
+        counters = profiling.records()[-1]["counters"]
+    finally:
+        profiling.tracing(was)
+        profiling.reset()
+    # every pose counted; on the CPU none is a graph replay
+    assert counters["poses"] == [1, 1, 1] and "pose_replays" not in counters
 
 
 def test_parse_flight_matches_jax():

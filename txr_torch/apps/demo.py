@@ -22,6 +22,7 @@ import argparse
 import contextlib
 import dataclasses
 import math
+import numbers
 import os
 import time
 
@@ -30,10 +31,11 @@ import torch
 
 from txr_torch import resolve_device
 from txr_torch.geometry import quaternion as quat
+from txr_torch.render.graphs import Recorder
 from txr_torch.render.texture import TextureSet
 from txr_torch.scene import surface_factory as sf
 from txr_torch.scene.factories import SceneBuilder
-from txr_torch.utils.profiling import span
+from txr_torch.utils.profiling import count, span
 
 SATURN_RADIUS = 4150.0
 SATURN_PITCH = quat.from_euler([math.radians(15.0), 0.0, 0.0])
@@ -218,70 +220,163 @@ def build_scene(width=1280, height=720):
 
 # -- animation (main.cpp:197-246) ------------------------------------------
 
-def _on_device(values, dev):
-    """float32 [len(values)] on ``dev``.  Python numbers go in one copy from
-    pinned memory that does not wait on the device (no host sync), so frames
-    can follow each other back to back; tensors are stacked where they are."""
+# the leaves the pose writes, in the order of its flat buffer
+POSED = (("spheres", "pos"), ("spheres", "quat"), ("rings", "pos"), ("boxes", "quat"),
+         ("toruses", "quat"))
+Y_AXIS = (0.0, 1.0, 0.0)
+BOX_AXIS = (0.5774, 0.5774, 0.5774)
+# glm's `vec3(0,1,0) * saturn_pitch` rotates by the inverse quat
+SATURN_AXIS = quat.rotate(quat.inv(SATURN_PITCH), torch.tensor(Y_AXIS))
+# each spin's axis: jupiter, saturn, mars, the box, the torus
+SPIN_AXES = (*Y_AXIS, *SATURN_AXIS.tolist(), *Y_AXIS, *BOX_AXIS, *Y_AXIS)
+# the orbits' radii: jupiter, saturn, mars, saturn (its ring), mars's height
+ORBIT_RADII = (20000.0, 35000.0, 10000.0, 35000.0, -3000.0)
+
+
+def _pose_leaves(scene):
+    return [getattr(getattr(scene, group), name) for group, name in POSED]
+
+
+def _frame_scalars(dt, t):
+    """The frame's scalars (main.cpp:197-246) as ``_pose`` reads them: the
+    orbit angles whose cosines and sines it takes, their radii, the spin
+    angles and the spin axes."""
+    return [t * 0.02, t * 0.0082 + 1.0, t * 0.05 + 0.5, t * 0.0082 + 1.0, t * 0.05,
+            *ORBIT_RADII, dt / 15.0, dt / 10.0, dt / 5.0, dt, dt, *SPIN_AXES]
+
+
+def _writes(handles, leaves):
+    """Where ``_pose`` writes in the flat buffer of ``leaves`` (``POSED``):
+    the x of the orbits and the ring and mars's height (cosines), their z
+    (sines), then the five spun quaternions."""
+    offsets, o = [], 0
+    for x in leaves:
+        offsets.append((o, x.shape[-1]))
+        o += x.numel()
+    at = lambda leaf, row, col: offsets[leaf][0] + row * offsets[leaf][1] + col
+    h = handles
+    xs = [at(0, h.jupiter, 0), at(0, h.saturn, 0), at(0, h.mars, 0),
+          at(2, h.saturn_rings, 0), at(0, h.mars, 1)]
+    zs = [at(0, h.jupiter, 2), at(0, h.saturn, 2), at(0, h.mars, 2), at(2, h.saturn_rings, 2)]
+    spun = [at(leaf, row, c) for leaf, row in ((1, h.jupiter), (1, h.saturn), (1, h.mars),
+                                               (3, h.box), (4, h.torus)) for c in range(4)]
+    return xs + zs + spun
+
+
+def _on_device(values, dev, dtype=torch.float32):
+    """``values`` as a [len(values)] tensor on ``dev``.  Python numbers go in
+    one copy from pinned memory that does not wait on the device (no host
+    sync), so frames can follow each other back to back; tensors are
+    stacked where they are."""
     if any(torch.is_tensor(v) for v in values):
-        return torch.stack([torch.as_tensor(v, dtype=torch.float32).to(dev) for v in values])
-    host = torch.tensor(values, dtype=torch.float32)
-    if dev.type == "cuda":
-        host = host.pin_memory()
+        return torch.stack([torch.as_tensor(v, dtype=dtype).to(dev) for v in values])
+    host = torch.tensor(values, dtype=dtype, pin_memory=dev.type == "cuda")
     return host.to(dev, non_blocking=True)
+
+
+def _pose(leaves, u, idx):
+    """The posed ``leaves`` (``POSED``) in one flat tensor: the leaves in
+    order, with the orbits' coordinates and the five spun rows written at
+    ``idx`` (``_writes``); ``u``: the frame's scalars (``_frame_scalars``)
+    on the leaves' device.  The five spins are one batched product."""
+    flat = torch.cat([x.reshape(-1) for x in leaves])
+    ang, radius = u[0:5], u[5:10]
+    spin = quat.from_axis_angle(u[15:30].view(5, 3), u[10:15])
+    spun = quat.mul(flat[idx[9:]].view(5, 4), spin)
+    vals = torch.cat([torch.cos(ang) * radius, torch.sin(ang[:4]) * radius[:4], spun.view(-1)])
+    return flat.index_put_((idx,), vals)
+
+
+class _PoseProgram:
+    """``_pose`` as one piece of a ``graphs.Recorder``: a CUDA graph on the
+    card, captured at the first call, run eagerly on the CPU.  Its static
+    input is the frame's scalars ``u``; it reads the input ``leaves`` in
+    place (it holds them, so their storage stays theirs), and writes the
+    posed leaves into one flat buffer, which each call copies out."""
+
+    def __init__(self, key, leaves, handles, dev):
+        self.key, self.leaves = key, leaves
+        self.rec = Recorder(dev)
+        self.u = torch.empty(len(_frame_scalars(0.0, 0.0)), device=dev)
+        self.idx = _on_device(_writes(handles, leaves), dev, torch.int64)
+        self.piece = None
+
+    def _run(self):
+        self.flat = _pose(self.leaves, self.u, self.idx)
+
+    def __call__(self, dt, t):
+        """The posed leaves at (dt, t), in a flat tensor of their own."""
+        host = torch.tensor(_frame_scalars(dt, t), dtype=torch.float32, pin_memory=self.rec.cuda)
+        self.u.copy_(host, non_blocking=True)
+        if self.piece is None:
+            self.rec.warm_up(self._run)
+            self.piece = self.rec.capture(self._run)
+        self.piece.replay()
+        if self.rec.cuda:
+            count("pose_replays", 1)
+        return self.flat.clone()
+
+
+_POSE = None        # the last pose program (one key at a time)
+
+
+def _pose_program(leaves, handles, dev):
+    """The pose program of these leaves and handles: the cached one, or a
+    new one in its place."""
+    global _POSE
+    key = (dev, dataclasses.astuple(handles),
+           tuple((x.data_ptr(), tuple(x.shape), x.dtype) for x in leaves))
+    if _POSE is None or _POSE.key != key:
+        _POSE = None    # the old graph's memory goes before the new one's
+        _POSE = _PoseProgram(key, leaves, handles, dev)
+    return _POSE
+
+
+def _is_number(x):
+    return isinstance(x, numbers.Real) and not torch.is_tensor(x)
 
 
 def update_scene(scene, handles: DemoHandles, dt, t):
     """The scene at time ``t`` after a frame of ``dt`` seconds: a new scene,
     the input untouched (txr/apps/demo.py:233-287).  ``dt`` and ``t`` are
-    floats or tensors; the result lives on the scene's device."""
+    floats or tensors; the result lives on the scene's device.
+
+    With numbers for ``dt`` and ``t`` and no leaf that wants a gradient,
+    the pose is one replay of a program captured per input scene
+    (``_PoseProgram``: a CUDA graph on the card, its eager piece on the
+    CPU); with tensors, or a gradient, the same ``_pose`` runs eagerly and
+    is differentiable.  Tracer counters: ``poses``, 1 a call;
+    ``pose_replays``, 1 a graph replay."""
     with span("txr.pose"):
+        count("poses", 1)
         return _posed(scene, handles, dt, t)
 
 
 def _posed(scene, handles, dt, t):
     dev = scene.device
-    # the frame's angles, then the spin axes and Saturn's pitch, in one copy
-    u = _on_device([t * 0.02, t * 0.0082 + 1.0, t * 0.05 + 0.5, t * 0.05,
-                    dt / 15.0, dt / 10.0, dt / 5.0, dt,
-                    0.0, 1.0, 0.0, 0.5774, 0.5774, 0.5774, *SATURN_PITCH.tolist()], dev)
-    y_axis, box_axis, pitch = u[8:11], u[11:14], u[14:18]
+    leaves = _pose_leaves(scene)
+    if (_is_number(dt) and _is_number(t)
+            and not (torch.is_grad_enabled() and any(x.requires_grad for x in leaves))):
+        flat = _pose_program(leaves, handles, dev)(dt, t)
+    else:
+        flat = _pose_eagerly(leaves, handles, dt, t, dev)
+    return _with_posed(scene, flat)
 
-    def spin(q, axis, angle):
-        return quat.mul(q, quat.from_axis_angle(axis, angle))
 
-    sp = scene.spheres
-    pos, sq = sp.pos.clone(), sp.quat.clone()
-    # jupiter (main.cpp:199-206)
-    j = handles.jupiter
-    pos[j, 0] = torch.cos(u[0]) * 20000.0
-    pos[j, 2] = torch.sin(u[0]) * 20000.0
-    sq[j] = spin(sp.quat[j], y_axis, u[4])
-    # saturn and its ring (main.cpp:208-223)
-    s = handles.saturn
-    sx = torch.cos(u[1]) * 35000.0
-    sz = torch.sin(u[1]) * 35000.0
-    pos[s, 0] = sx
-    pos[s, 2] = sz
-    # glm's `vec3(0,1,0) * saturn_pitch` rotates by the inverse quat
-    axis = quat.rotate(quat.inv(pitch), y_axis)
-    sq[s] = spin(sp.quat[s], axis, u[5])
-    rpos = scene.rings.pos.clone()
-    rpos[handles.saturn_rings, 0] = sx
-    rpos[handles.saturn_rings, 2] = sz
-    # mars (main.cpp:225-232)
-    m = handles.mars
-    pos[m, 0] = torch.cos(u[2]) * 10000.0
-    pos[m, 2] = torch.sin(u[2]) * 10000.0
-    pos[m, 1] = -torch.cos(u[3]) * 3000.0
-    sq[m] = spin(sp.quat[m], y_axis, u[6])
-    # box tumble (main.cpp:234-239) and torus spin (main.cpp:241-245)
-    bq = scene.boxes.quat.clone()
-    bq[handles.box] = spin(scene.boxes.quat[handles.box], box_axis, u[7])
-    tq = scene.toruses.quat.clone()
-    tq[handles.torus] = spin(scene.toruses.quat[handles.torus], y_axis, u[7])
+def _pose_eagerly(leaves, handles, dt, t, dev):
+    """``_pose`` run as it is (differentiable) → the flat posed leaves."""
+    return _pose(leaves, _on_device(_frame_scalars(dt, t), dev),
+                 _on_device(_writes(handles, leaves), dev, torch.int64))
+
+
+def _with_posed(scene, flat):
+    """The scene with its ``POSED`` leaves read from ``flat``, in order."""
+    olds = _pose_leaves(scene)
+    pos, sq, rpos, bq, tq = (v.view(x.shape) for v, x in
+                             zip(flat.split([x.numel() for x in olds]), olds))
     return dataclasses.replace(
         scene,
-        spheres=dataclasses.replace(sp, pos=pos, quat=sq),
+        spheres=dataclasses.replace(scene.spheres, pos=pos, quat=sq),
         rings=dataclasses.replace(scene.rings, pos=rpos),
         boxes=dataclasses.replace(scene.boxes, quat=bq),
         toruses=dataclasses.replace(scene.toruses, quat=tq),

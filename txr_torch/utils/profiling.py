@@ -47,6 +47,10 @@ Counters, added per bounce step (``graphs.TraceUnit.run``): ``lanes``,
 the live lanes entering it; ``rows``, its capacity, the rows it gathers,
 steps and scatters; ``steps``, 1; and ``captures``, 1 per capture.
 ``100 · Σ lanes / Σ rows`` is the share of stepped rows that were live.
+Counters of the pose (``apps.demo.update_scene``), which belong to the
+next unit as ``txr.pose`` does: ``poses``, 1 a call; ``pose_replays``, 1
+a replay of its CUDA graph.  ``100 · Σ pose_replays / Σ poses`` is the
+share of poses that ran as one graph replay.
 """
 
 from __future__ import annotations
