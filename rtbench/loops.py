@@ -343,9 +343,11 @@ class Fit(Loop):
     def compare(self, out, dtype=torch.float64, tally=False):
         S = ref.Scene(self.cfg, self.t, dtype, self.dev, requires_grad=True)
         T = ref.Textures(self.cfg, self.raw, dtype)
-        loss, grads, _ = ref.loss_and_grad(S, T, self.settings)
+        # the step's forward is the posed frame's: its tally prices the step
+        steps = [] if tally else None
+        loss, grads, _ = ref.loss_and_grad(S, T, self.settings, tally=steps)
         grads = {k: v.double().cpu() for k, v in grads.items()}
-        return check.fit_numbers(out, loss, grads), []
+        return check.fit_numbers(out, loss, grads), [steps] if tally else []
 
     def control(self, dtype, rows=None):
         """What the fit would leave if the reference in ``dtype`` stood in the

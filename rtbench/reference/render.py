@@ -1097,11 +1097,12 @@ def render(S, T, cfg, chunk=1 << 18, tally=None, grad_fn=None):
     return img
 
 
-def loss_and_grad(S, T, cfg, chunk=1 << 17, rows=None):
+def loss_and_grad(S, T, cfg, chunk=1 << 17, rows=None, tally=None):
     """mean(img²) over the 1-spp frame and its gradient with respect to
     every leaf of ``S`` (made with ``requires_grad``) → (loss, {path:
     gradient}, image), the backward run chunk by chunk.  ``rows``: the
-    image rows the mean is taken over (default all)."""
+    image rows the mean is taken over (default all); ``tally`` as in
+    ``render``."""
     H, W = cfg.height, cfg.width
     keep = torch.zeros(H * W, dtype=torch.bool, device=S.device)
     keep.view(H, W)[slice(None) if rows is None else rows] = True
@@ -1119,5 +1120,5 @@ def loss_and_grad(S, T, cfg, chunk=1 << 17, rows=None):
                 grads[k] += g
         total[0] += float(part.detach())
 
-    img = render(S, T, cfg, chunk, grad_fn=grad_fn)
+    img = render(S, T, cfg, chunk, tally=tally, grad_fn=grad_fn)
     return total[0], grads, img

@@ -37,7 +37,7 @@ def test_traced_run_reports_per_layer_metrics(bench_copy):
                              "--seconds", "1", "--trace", "1", "--size", "32x18")
     assert rc == 0, err[-2000:]
     # on the CPU only the host-clock readings have something to read
-    assert set(line["metrics"]) == {"capture_s"}
+    assert set(line["metrics"]) == {"capture_s", "capture_graph_s"}
 
 
 def test_added_files_are_found_by_name(bench_copy):
