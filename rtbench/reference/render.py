@@ -18,6 +18,12 @@ piecewise constant and so detached: the winner of each nearest-hit search
 root by one Newton step from the solved root, the implicit derivative),
 every shadow query, and the edge-AA pixel choice.
 
+Every nearest-hit and shadow sweep tests one primitive type at a time, in
+blocks of rays × primitives (at most ``PAIR_BLOCK`` pairs), with the same
+per-pair formulas as a sweep over the primitives one by one and the same
+result: the first slot wins an exact tie, as the sequential ``t < tmin``
+gives.  Rings' shadow alpha is added ring by ring, in ring order.
+
 It imports nothing of the program and nothing of JAX.  Runs on any device
 and in any float dtype: float64 is the reference; a lower dtype is the
 precision control (the torus's root search then runs in complex64).
@@ -38,6 +44,14 @@ T_SPHERE, T_PLANE, T_SURFACE, T_BOX, T_TORUS, T_RING, T_LIGHT = range(7)
 # the nearest-hit sweep's order (rt.frag:587-628) and each type's number
 SWEEP = (("planes", T_PLANE), ("spheres", T_SPHERE), ("surfaces", T_SURFACE),
          ("boxes", T_BOX), ("toruses", T_TORUS), ("rings", T_RING))
+# the slots: the sweep's surfaces, then the point lights its nearest hit tests
+SLOT_KINDS = tuple(k for k, _ in SWEEP) + ("lights_point",)
+TYPE_OF = dict(SWEEP, lights_point=T_LIGHT)
+# each type's parameters, in the order the intersectors take them
+PARAMS = dict(planes=("pos", "normal"), spheres=("pos", "radius"),
+              surfaces=("pos", "quat", "coef", "v_min", "v_max"), boxes=("pos", "quat", "form"),
+              toruses=("pos", "quat", "form"), rings=("pos", "quat", "r1", "r2"),
+              lights_point=("pos", "radius"))
 MAT_FIELDS = ("color", "absorb", "diffuse", "reflect", "refract", "specular", "kd", "ks")
 MIP_MIN_SIZE = 4
 LOD_COS_MIN = 0.125
@@ -46,6 +60,9 @@ LOD_EPS = 1.0 / 1024.0
 CROSS_SHRINK = 1.0 - 1e-4
 # rays whose line passes within this factor of a torus's R + r are solved
 TORUS_CULL = 1.001
+# (ray, primitive) pairs a sweep tests at once: bounds its [rays,
+# primitives, 3] temporaries (50 MB each in float64)
+PAIR_BLOCK = 1 << 21
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,9 +212,12 @@ class Scene:
         if requires_grad:
             L = {k: v.requires_grad_(True) for k, v in L.items()}
         self.leaves = L
-        # material rows of every surface slot, in the sweep's type order
+        self.hollow_mask = {kind: torch.tensor(self.hollow[kind], dtype=torch.bool,
+                                               device=self.device) for kind in fields}
+        # every slot's number, in the sweep's type order: the surfaces (their
+        # material rows), then the point lights
         self.slot0, off = {}, 0
-        for kind, _ in SWEEP:
+        for kind in SLOT_KINDS:
             self.slot0[kind] = off
             off += self.count[kind]
         self.n_lights = self.count["lights_point"] + self.count["lights_direct"]
@@ -211,8 +231,8 @@ class Scene:
 
     def slot_of(self, typ, num):
         base = torch.zeros(8, dtype=torch.int64, device=self.device)
-        for kind, ty in SWEEP:
-            base[ty] = self.slot0[kind]
+        for kind in SLOT_KINDS:
+            base[TYPE_OF[kind]] = self.slot0[kind]
         return base[typ.clamp(min=0)] + num
 
 
@@ -257,11 +277,13 @@ class Texture:
 class Textures:
     """The raw textures of a configuration (``rtbench.textures.make``),
     quantised to RGBA8 and mipmapped here, as the reference's GL upload
-    and glGenerateMipmap do."""
+    and glGenerateMipmap do; a role the configuration leaves out is
+    None (no sphere texture: an empty list)."""
 
     def __init__(self, cfg, raw, dtype=torch.float64, lod=True):
-        names = cfg["textures"]
-        self.sphere = [Texture(raw[n], dtype, lod, i) for i, n in enumerate(names["sphere"])]
+        names = cfg.get("textures", {})
+        self.sphere = [Texture(raw[n], dtype, lod, i)
+                       for i, n in enumerate(names.get("sphere", ()))]
         k = len(self.sphere)
         self.ring = Texture(raw[names["ring"]], dtype, lod, k) if names.get("ring") else None
         self.box = Texture(raw[names["box"]], dtype, lod, k + 1) if names.get("box") else None
@@ -348,14 +370,15 @@ def _miss(t, ok):
 
 
 def sphere_t(ro, rd, pos, radius, hollow):
+    """``hollow``: a bool, or a bool tensor of the spheres that are."""
     oc = ro - pos
     b = dot(oc, rd)
     c = dot(oc, oc) - radius * radius
     h = b * b - c
     hs = sqrt(h)
     t = -b - hs
-    if hollow:
-        t = torch.where(t < 0, -b + hs, t)
+    if torch.is_tensor(hollow) or hollow:
+        t = torch.where(hollow & (t < 0), -b + hs, t)
     return _miss(t, (h >= 0) & (t > 0))
 
 
@@ -483,21 +506,23 @@ def torus_crosses(ro, rd, pos, q, form, scale):
 
 @torch.no_grad()
 def torus_t(ro, rd, pos, q, form):
-    """The shader's torus: Durand-Kerner on the quartic (complex, up to 60
-    sweeps, stopping at a step under 1e-3), three complex Newton polishes
+    """The shader's torus, rays ro, rd [B, P, 3] against the P toruses of
+    pos, q, form → t [B, P]: Durand-Kerner on the quartic (complex, up to
+    60 sweeps, stopping at a step under 1e-3), three complex Newton polishes
     per root, the least real root (|imag| ≤ 1e-3, real ≥ 0), then two real
     Newton polishes; a hit when 0 < t < 100.  Only lines that pass near the
-    bounding sphere are solved: no other line can meet the torus."""
+    bounding sphere are solved, torus by torus: no other line can meet the
+    torus."""
     t = torch.full(ro.shape[:-1], INF, dtype=ro.dtype, device=ro.device)
     near = torus_crosses(ro, rd, pos, q, form, TORUS_CULL)
-    sel = torch.nonzero(near).squeeze(-1)
-    if not sel.numel():
+    p, r = torch.nonzero(near.t(), as_tuple=True)
+    n = r.numel()
+    if not n:
         return t
     cdt = torch.complex128 if ro.dtype == torch.float64 else torch.complex64
     rdt = torch.float64 if ro.dtype == torch.float64 else torch.float32
-    c = [x.to(rdt) for x in _torus_quartic(ro[sel], rd[sel], pos, q, form)]
+    c = [x.to(rdt) for x in _torus_quartic(ro[r, p], rd[r, p], pos[p], q[p], form[p])]
     cc = [x.to(cdt) for x in c]
-    n = sel.numel()
     z0 = complex(0.4, 0.9)
     roots = [torch.full((n,), v, dtype=cdt, device=ro.device)
              for v in (complex(1.0, 0.0), z0, z0 ** 2, z0 ** 3)]
@@ -531,7 +556,7 @@ def torus_t(ro, rd, pos, q, form):
         go = hit & (fp.abs() > 1e-6)
         best = torch.where(go, best - _horner(c, best) / torch.where(go, fp, torch.ones_like(fp)),
                            best)
-    t[sel] = torch.where(hit, best, torch.full_like(best, INF)).to(ro.dtype)
+    t[r, p] = torch.where(hit, best, torch.full_like(best, INF)).to(ro.dtype)
     return t
 
 
@@ -554,24 +579,83 @@ def torus_normal(ro, rd, t, pos, q, form):
 
 # -- scene queries --------------------------------------------------------------
 
-def _prim(S, kind, i, *names):
-    return [S[f"{kind}.{n}"][i] for n in names]
+def _prim(S, kind, at, *names):
+    return [S[f"{kind}.{n}"][at] for n in names]
 
 
-def _test(S, cfg, kind, i, ro, rd):
+def _t_of(S, cfg, kind, at, ro, rd, shadow=False):
+    """t of rays against primitives of one kind: ``at`` an index, rays
+    [n, 3] against that primitive (not a torus: its t with a gradient is
+    ``torus_t_grad``'s); a slice of P primitives, rays [B, P, 3] against
+    each.  A shadow ray sees no sphere hollow and every plane from both
+    sides."""
+    args = _prim(S, kind, at, *PARAMS[kind])
     if kind == "planes":
-        pos, n = _prim(S, kind, i, "pos", "normal")
-        return plane_t(ro, rd, n, pos, cfg.plane_oneside)
-    if kind == "spheres":
-        pos, r = _prim(S, kind, i, "pos", "radius")
-        return sphere_t(ro, rd, pos, r, S.hollow[kind][i])
+        pos, n = args
+        return plane_t(ro, rd, n, pos, cfg.plane_oneside and not shadow)
+    if kind in ("spheres", "lights_point"):
+        hollow = (False if shadow or kind == "lights_point" else
+                  S.hollow[kind][at] if isinstance(at, int) else S.hollow_mask[kind][at])
+        return sphere_t(ro, rd, *args, hollow)
     if kind == "surfaces":
-        return surface_t(ro, rd, *_prim(S, kind, i, "pos", "quat", "coef", "v_min", "v_max"))
+        return surface_t(ro, rd, *args)
     if kind == "boxes":
-        return box_t(ro, rd, *_prim(S, kind, i, "pos", "quat", "form"))
+        return box_t(ro, rd, *args)
     if kind == "toruses":
-        return torus_t(ro, rd, *_prim(S, kind, i, "pos", "quat", "form"))
-    return ring_t(ro, rd, *_prim(S, kind, i, "pos", "quat", "r1", "r2"))
+        return torus_t(ro, rd, *args)
+    return ring_t(ro, rd, *args)
+
+
+def _sweep(S, cfg, kinds, ro, rd, take, shadow=False):
+    """Every primitive of ``kinds`` against the rays ro, rd [R, 3], in
+    blocks of at most PAIR_BLOCK (ray, primitive) pairs, each ray's
+    primitives in slot order: ``take(kind, rays, prims, t)`` gets each
+    block's slices and its t [rays, prims]."""
+    R = ro.shape[0]
+    for kind in kinds:
+        P = S.count[kind]
+        if not P:
+            continue
+        per_rays, per_prims = max(1, PAIR_BLOCK // P), min(P, PAIR_BLOCK)
+        for r0 in range(0, R, per_rays):
+            rays = slice(r0, min(R, r0 + per_rays))
+            for p0 in range(0, P, per_prims):
+                prims = slice(p0, min(P, p0 + per_prims))
+                shape = (rays.stop - r0, prims.stop - p0, 3)
+                o, d = ro[rays, None].expand(shape), rd[rays, None].expand(shape)
+                take(kind, rays, prims, _t_of(S, cfg, kind, prims, o, d, shadow))
+
+
+def _groups(S, typ, num, alone):
+    """The rays (typ, num) name grouped by the primitive they hit →
+    [(kind, at, rows)] in slot order, each group's rows ascending (as
+    ``nonzero`` gives them): a primitive for which ``alone(kind, i)`` holds
+    on its own (at = i), the others of a kind together (at = the num of
+    each row).  Rays of type −1 are in none.  One sort and one copy to the
+    host in place of a pass over the rays per primitive."""
+    gid, groups, shared = [], [], {}
+    for kind in SLOT_KINDS:
+        for i in range(S.count[kind]):
+            if alone(kind, i):
+                gid.append(len(groups))
+                groups.append((kind, i))
+                continue
+            if kind not in shared:
+                shared[kind] = len(groups)
+                groups.append((kind, None))
+            gid.append(shared[kind])
+    if not gid:
+        return []
+    table = torch.tensor(gid, dtype=torch.int64, device=typ.device)
+    key = torch.where(typ < 0, len(groups), table[S.slot_of(typ, num).clamp(max=len(gid) - 1)])
+    order = torch.sort(key, stable=True).indices
+    out, start = [], 0
+    for (kind, i), n in zip(groups, torch.bincount(key, minlength=len(groups)).tolist()):
+        if n:
+            rows = order[start:start + n]
+            out.append((kind, num[rows] if i is None else i, rows))
+        start += n
+    return out
 
 
 def calc_inter(S, cfg, ro, rd):
@@ -583,35 +667,31 @@ def calc_inter(S, cfg, ro, rd):
         tmin = torch.full((R,), MAX_DIST, dtype=ro.dtype, device=ro.device)
         typ = torch.full((R,), -1, dtype=torch.int64, device=ro.device)
         num = torch.zeros(R, dtype=torch.int64, device=ro.device)
-        d_ro, d_rd = ro.detach(), rd.detach()
-        tests = [(kind, ty, i) for kind, ty in SWEEP for i in range(S.count[kind])]
-        tests += [("lights_point", T_LIGHT, i) for i in range(S.count["lights_point"])]
-        for kind, ty, i in tests:
-            if kind == "lights_point":
-                pos, r = _prim(S, kind, i, "pos", "radius")
-                t = sphere_t(d_ro, d_rd, pos, r, False)
-            else:
-                t = _test(S, cfg, kind, i, d_ro, d_rd)
-            up = t < tmin
-            tmin = torch.where(up, t, tmin)
-            typ = torch.where(up, ty, typ)
-            num = torch.where(up, i, num)
+
+        def take(kind, rays, prims, t):
+            # the block's least t, its first primitive on a tie; NaN never wins
+            t = torch.where(torch.isnan(t), INF, t)
+            m = t.amin(1)
+            at = torch.arange(t.shape[1], device=t.device)
+            j = torch.where(t == m[:, None], at, t.shape[1]).amin(1)
+            up = m < tmin[rays]
+            tmin[rays] = torch.where(up, m, tmin[rays])
+            typ[rays] = torch.where(up, TYPE_OF[kind], typ[rays])
+            num[rays] = torch.where(up, j + prims.start, num[rays])
+
+        _sweep(S, cfg, SLOT_KINDS, ro.detach(), rd.detach(), take)
     if not (torch.is_grad_enabled() and (ro.requires_grad or rd.requires_grad
                                           or any(v.requires_grad for v in S.leaves.values()))):
         return tmin, typ, num
     t = tmin
-    for kind, ty, i in tests:
-        sel = torch.nonzero((typ == ty) & (num == i)).squeeze(-1)
-        if not sel.numel():
-            continue
+    # one graph piece per winning primitive: gathering the parameters of a
+    # whole type would sum the leaves' gradients in another order
+    for kind, i, sel in _groups(S, typ, num, lambda kind, i: True):
         o, d = ro[sel], rd[sel]
-        if kind == "lights_point":
-            pos, r = _prim(S, kind, i, "pos", "radius")
-            tv = sphere_t(o, d, pos, r, False)
-        elif kind == "toruses":
+        if kind == "toruses":
             tv = torus_t_grad(o, d, *_prim(S, kind, i, "pos", "quat", "form"), tmin[sel])
         else:
-            tv = _test(S, cfg, kind, i, o, d)
+            tv = _t_of(S, cfg, kind, i, o, d)
         t = t.index_put((sel,), tv)
     return t, typ, num
 
@@ -624,18 +704,12 @@ def in_shadow(S, T, cfg, ro, rd, dist, tally=None):
     ``tally`` a dict, it gains ``solid`` [R] bool and ``ring_keys`` (the
     alpha taps' keys)."""
     solid = torch.zeros(ro.shape[0], dtype=torch.bool, device=ro.device)
-    for kind in ("spheres", "surfaces", "boxes", "toruses"):
-        for i in range(S.count[kind]):
-            if kind == "spheres":
-                pos, r = _prim(S, kind, i, "pos", "radius")
-                t = sphere_t(ro, rd, pos, r, False)
-            else:
-                t = _test(S, cfg, kind, i, ro, rd)
-            solid |= t < dist
-    if not cfg.plane_oneside:
-        for i in range(S.count["planes"]):
-            pos, n = _prim(S, "planes", i, "pos", "normal")
-            solid |= plane_t(ro, rd, n, pos, False) < dist
+
+    def take(kind, rays, prims, t):
+        solid[rays] |= (t < dist[rays, None]).any(1)
+
+    kinds = ("spheres", "surfaces", "boxes", "toruses")
+    _sweep(S, cfg, kinds + (() if cfg.plane_oneside else ("planes",)), ro, rd, take, shadow=True)
     shadow = solid.to(ro.dtype)
     keys = [] if tally is not None else None
     for i in range(S.count["rings"]):
@@ -769,71 +843,81 @@ def hit_info(S, T, cfg, ro, rd, t, typ, num, pix_angle, keys=None, key_mask=None
         count_taps(tx, u, v, lv, sel)
         return trilinear(tx, u, v, lv)
 
-    for kind, ty in SWEEP:
-        for i in range(S.count[kind]):
-            sel = torch.nonzero((typ == ty) & (num == i)).squeeze(-1)
-            if not sel.numel():
-                continue
-            o, d, p, tt = ro[sel], rd[sel], pt[sel], t[sel]
-            tex = S.texture[kind][i]
-            c = None
-            if kind == "spheres":
-                pos, radius, q = _prim(S, kind, i, "pos", "radius", "quat")
-                n = nrm(p - pos)
-                if 0 < tex <= len(T.sphere):
-                    tx = T.sphere[tex - 1]
-                    sn = rot(q, n)
-                    pole = (sn[..., 0] == 0) & (sn[..., 2] == 0)
-                    sx = torch.where(pole, torch.ones_like(sn[..., 0]), sn[..., 0])
-                    u = 0.5 + torch.atan2(sn[..., 2], sx) / (2 * PI)
-                    edge = 1.0 - torch.finfo(sn.dtype).eps
-                    v = 0.5 - torch.asin(torch.clamp(sn[..., 1], -edge, edge)) / PI
-                    H, W = tx.shape0
-                    tpw = max(W / (2.0 * PI), H / PI) / torch.clamp(radius, min=1e-6)
-                    c = fetch(tx, u, v, lod(sel, n, tpw), sel)
-                    alpha = _scatter(alpha, sel, c[..., 3])
-            elif kind == "planes":
-                n = nrm(S["planes.normal"][i]).expand(p.shape)
-            elif kind == "surfaces":
-                pos, q, coef = _prim(S, kind, i, "pos", "quat", "coef")
-                n = surface_normal(o, d, tt, pos, q, coef)
-            elif kind == "boxes":
-                pos, q, form = _prim(S, kind, i, "pos", "quat", "form")
-                n = box_normal(o, d, pos, q, form)
-                if tex > 0 and T.box is not None:
-                    bp, pp, nn = rot(q, pos.expand(p.shape)), rot(q, p), rot(q, n)
-                    H, W = T.box.shape0
-                    lv = lod(sel, n, 0.5 * max(H, W))
-                    rel = pp - bp
-                    fu = 0.5 * torch.stack([rel[..., 2], rel[..., 2], rel[..., 0]], -1) - 0.5
-                    fv = 0.5 * torch.stack([rel[..., 1], rel[..., 0], rel[..., 1]], -1) - 0.5
-                    c = sum(nn[..., k:k + 1].abs() * trilinear(T.box, fu[..., k], fv[..., k], lv)
-                            for k in range(3))
-                    # the program fetches the dominant face alone: its taps
-                    dom = nn.abs().argmax(-1, keepdim=True)
-                    count_taps(T.box, fu.gather(-1, dom)[..., 0], fv.gather(-1, dom)[..., 0],
-                               lv, sel)
-            elif kind == "toruses":
-                pos, q, form = _prim(S, kind, i, "pos", "quat", "form")
-                n = torus_normal(o, d, tt, pos, q, form)
-            else:
-                pos, q, r1, r2 = _prim(S, kind, i, "pos", "quat", "r1", "r2")
-                zdir = torch.tensor([0.0, 0.0, -1.0], dtype=p.dtype, device=p.device)
-                n = rot(qinv(q), zdir.expand(p.shape))
-                if tex > 0 and T.ring is not None:
-                    u, v = ring_uv(o, d, tt, pos, q, r1, r2)
-                    H, W = T.ring.shape0
-                    rm = sqrt(torch.clamp(0.5 * (r1 + r2), min=1e-12))
-                    tpw = torch.maximum(W * 2.0 * rm / torch.clamp(r2 - r1, min=1e-12),
-                                        H / (PI * rm))
-                    c = fetch(T.ring, u, v, lod(sel, n, tpw), sel)
-                    alpha = _scatter(alpha, sel, c[..., 3])
-            if c is not None:
-                mat["color"] = _scatter(mat["color"], sel, c[..., :3])
-                textured[sel] = True
-            normal = _scatter(normal, sel, n)
+    # with gradients on, one graph piece per primitive (the leaves' gradients
+    # then sum as a primitive-by-primitive pass sums them); else textured
+    # primitives one by one and the others of a type together
+    grad = torch.is_grad_enabled() and (t.requires_grad or ro.requires_grad or rd.requires_grad
+                                        or any(v.requires_grad for v in S.leaves.values()))
+    for kind, i, sel in _groups(S, typ, num,
+                                lambda kind, i: grad or _textured(S, T, kind, i)):
+        o, d, p, tt = ro[sel], rd[sel], pt[sel], t[sel]
+        tex = _textured(S, T, kind, i) if isinstance(i, int) else False
+        c = None
+        if kind == "spheres":
+            pos, radius, q = _prim(S, kind, i, "pos", "radius", "quat")
+            n = nrm(p - pos)
+            if tex:
+                tx = T.sphere[S.texture[kind][i] - 1]
+                sn = rot(q, n)
+                pole = (sn[..., 0] == 0) & (sn[..., 2] == 0)
+                sx = torch.where(pole, torch.ones_like(sn[..., 0]), sn[..., 0])
+                u = 0.5 + torch.atan2(sn[..., 2], sx) / (2 * PI)
+                edge = 1.0 - torch.finfo(sn.dtype).eps
+                v = 0.5 - torch.asin(torch.clamp(sn[..., 1], -edge, edge)) / PI
+                H, W = tx.shape0
+                tpw = max(W / (2.0 * PI), H / PI) / torch.clamp(radius, min=1e-6)
+                c = fetch(tx, u, v, lod(sel, n, tpw), sel)
+                alpha = _scatter(alpha, sel, c[..., 3])
+        elif kind == "planes":
+            n = nrm(S["planes.normal"][i]).expand(p.shape)
+        elif kind == "surfaces":
+            pos, q, coef = _prim(S, kind, i, "pos", "quat", "coef")
+            n = surface_normal(o, d, tt, pos, q, coef)
+        elif kind == "boxes":
+            pos, q, form = _prim(S, kind, i, "pos", "quat", "form")
+            n = box_normal(o, d, pos, q, form)
+            if tex:
+                bp, pp, nn = rot(q, pos.expand(p.shape)), rot(q, p), rot(q, n)
+                H, W = T.box.shape0
+                lv = lod(sel, n, 0.5 * max(H, W))
+                rel = pp - bp
+                fu = 0.5 * torch.stack([rel[..., 2], rel[..., 2], rel[..., 0]], -1) - 0.5
+                fv = 0.5 * torch.stack([rel[..., 1], rel[..., 0], rel[..., 1]], -1) - 0.5
+                c = sum(nn[..., k:k + 1].abs() * trilinear(T.box, fu[..., k], fv[..., k], lv)
+                        for k in range(3))
+                # the program fetches the dominant face alone: its taps
+                dom = nn.abs().argmax(-1, keepdim=True)
+                count_taps(T.box, fu.gather(-1, dom)[..., 0], fv.gather(-1, dom)[..., 0],
+                           lv, sel)
+        elif kind == "toruses":
+            pos, q, form = _prim(S, kind, i, "pos", "quat", "form")
+            n = torus_normal(o, d, tt, pos, q, form)
+        else:
+            pos, q, r1, r2 = _prim(S, kind, i, "pos", "quat", "r1", "r2")
+            zdir = torch.tensor([0.0, 0.0, -1.0], dtype=p.dtype, device=p.device)
+            n = rot(qinv(q), zdir.expand(p.shape))
+            if tex:
+                u, v = ring_uv(o, d, tt, pos, q, r1, r2)
+                H, W = T.ring.shape0
+                rm = sqrt(torch.clamp(0.5 * (r1 + r2), min=1e-12))
+                tpw = torch.maximum(W * 2.0 * rm / torch.clamp(r2 - r1, min=1e-12),
+                                    H / (PI * rm))
+                c = fetch(T.ring, u, v, lod(sel, n, tpw), sel)
+                alpha = _scatter(alpha, sel, c[..., 3])
+        if c is not None:
+            mat["color"] = _scatter(mat["color"], sel, c[..., :3])
+            textured[sel] = True
+        normal = _scatter(normal, sel, n)
     bias = (9e-3 * sqrt(dot(pt - ro, pt - ro)) + 35.0) / 35e3
     return mat, normal, bias, alpha, textured
+
+
+def _textured(S, T, kind, i):
+    """Whether hit_info fetches a texture for primitive i of ``kind``."""
+    tex = S.texture[kind][i] if kind in ("spheres", "boxes", "rings") else 0
+    return ((kind == "spheres" and 0 < tex <= len(T.sphere))
+            or (kind == "boxes" and tex > 0 and T.box is not None)
+            or (kind == "rings" and tex > 0 and T.ring is not None))
 
 
 def _env(S, T, rd):

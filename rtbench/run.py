@@ -69,7 +69,8 @@ def readers(metrics):
 
 def least_ms(cfg, tallies):
     """{kernel: least ms a unit} of the reference's tallies (one per priced
-    unit), by the frozen work model."""
+    unit), by the frozen work model; the textures counted are those the
+    configuration names (maybe none)."""
     from rtbench import scenedata
     from rtbench.work import prices
 
@@ -78,8 +79,8 @@ def least_ms(cfg, tallies):
     rows = scenedata.scene_rows(cfg)
     cnt = {k: len(rows[k]) for k in ("spheres", "planes", "surfaces", "boxes", "toruses",
                                       "rings", "lights_point", "lights_direct")}
-    names = cfg["textures"]
-    n_tex = len(names["sphere"]) + bool(names.get("box")) + bool(names.get("ring"))
+    names = cfg.get("textures", {})
+    n_tex = len(names.get("sphere", ())) + bool(names.get("box")) + bool(names.get("ring"))
     out = {}
     for tally in tallies:
         for k, row in prices.frame(cnt, n_tex, tally).items():

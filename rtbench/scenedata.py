@@ -7,6 +7,22 @@ turns it into per-type lists of float64 numpy rows, the same rows that the
 harness hands to the program's ``SceneBuilder`` and that the reference
 reads (both after rounding to the configuration's float32).  It imports
 neither the program nor the reference.
+
+A configuration needs ``render``, ``material_defaults`` and, in ``scene``,
+the camera, ``ambient_color``, ``shadow_ambient`` and ``bg_color``.  It may
+leave out:
+
+- ``handles`` (the demo's animated primitives, by type and name): without
+  them every frame renders the scene as built, from its own viewpoint;
+- ``animation``: without it every primitive keeps its position;
+- ``textures``, or any of its roles (``sphere``, ``ring``, ``box``,
+  ``cubemap``): a role left out is no texture, a missing cubemap shows
+  ``bg_color``;
+- any primitive type (``spheres``, ``planes``, ``surfaces``, ``boxes``,
+  ``toruses``, ``rings``), and either kind of light (``lights_point``,
+  ``lights_direct``).
+
+Each primitive is listed explicitly: the harness generates no scene.
 """
 
 from __future__ import annotations
@@ -84,9 +100,10 @@ def scene_rows(cfg):
                                   intensity=f(l["intensity"]), radius=f(l.get("radius", 0.1)),
                                   linear_k=f(l.get("linear_k", 0.22)),
                                   quadratic_k=f(l.get("quadratic_k", 0.2)))
-                             for l in sc["lights_point"]],
+                             for l in sc.get("lights_point", [])],
                lights_direct=[dict(direction=f(l["direction"]), color=f(l["color"]),
-                                   intensity=f(l["intensity"])) for l in sc["lights_direct"]])
+                                   intensity=f(l["intensity"]))
+                              for l in sc.get("lights_direct", [])])
     for kind in TYPES:
         rows = []
         for p in sc.get(kind, []):
@@ -120,9 +137,10 @@ def posed_positions(cfg, rows, t):
     """{(kind, index): float64 [3] position} of the animated primitives at
     time ``t`` seconds, from the configuration's animation constants: each
     axis ``[fn, amplitude, rate, phase]`` is amplitude·fn(rate·t + phase);
-    an axis not listed keeps the primitive's position."""
+    an axis not listed keeps the primitive's position; no animation, no
+    entry."""
     out = {}
-    for a in cfg["animation"]:
+    for a in cfg.get("animation", []):
         kind, name = a["prim"]
         i = index_of(rows, kind, name)
         pos = rows[kind][i]["pos"].copy()

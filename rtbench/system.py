@@ -2,8 +2,9 @@
 public entry points: ``scene.factories.SceneBuilder`` for the scene,
 ``render.texture.TextureSet`` and ``with_mips`` for the textures,
 ``render.trace.RenderConfig`` for the settings, ``apps.demo.update_scene``
-for the animation's pose.  This is the only module of the harness that
-builds program objects; the traffic loops drive them.
+for the animation's pose (where the configuration has handles).  This is
+the only module of the harness that builds program objects; the traffic
+loops drive them.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ def imports():
 
 
 def scene(cfg, dev):
-    """(the program's scene on ``dev``, the demo's animation handles)."""
+    """(the program's scene on ``dev``, the demo's animation handles, or
+    None where the configuration names none)."""
     from txr_torch.apps.demo import DemoHandles
     from txr_torch.scene.factories import SceneBuilder
 
@@ -60,20 +62,23 @@ def scene(cfg, dev):
     for r in rows["surfaces"]:
         b.add_surface(t(r["coef"]), mat(r["mat"]), pos=t(r["pos"]), quat=t(r["quat"]),
                       v_min=t(r["v_min"]), v_max=t(r["v_max"]))
-    handles = DemoHandles(**{k: scenedata.index_of(rows, kind, name)
-                             for k, (kind, name) in cfg["handles"].items()})
+    handles = cfg.get("handles")
+    if handles is not None:
+        handles = DemoHandles(**{k: scenedata.index_of(rows, kind, name)
+                                 for k, (kind, name) in handles.items()})
     return b.build().to(dev), handles
 
 
 def textures(cfg, raw):
     """The program's texture set of the raw textures, its atlas and mip
-    pyramids built (``with_mips``, set-up's glGenerateMipmap)."""
+    pyramids built (``with_mips``, set-up's glGenerateMipmap), of the roles
+    the configuration names (none, if it has no ``textures``)."""
     from txr_torch.render.texture import TextureSet, with_mips
 
-    names = cfg["textures"]
-    return with_mips(TextureSet(sphere=tuple(raw[n] for n in names["sphere"]),
-                                ring=raw[names["ring"]], box=raw[names["box"]],
-                                cubemap=raw[names["cubemap"]]))
+    names = cfg.get("textures", {})
+    role = lambda r: raw[names[r]] if names.get(r) else None
+    return with_mips(TextureSet(sphere=tuple(raw[n] for n in names.get("sphere", ())),
+                                ring=role("ring"), box=role("box"), cubemap=role("cubemap")))
 
 
 def render_config(cfg, width=None, height=None):
@@ -91,7 +96,10 @@ def render_config(cfg, width=None, height=None):
 
 def pose(scene, handles, t):
     """The scene at the animation's time ``t`` seconds (no spin: dt = 0),
-    as the live viewer poses each frame (``apps/live.py``)."""
+    as the live viewer poses each frame (``apps/live.py``); without
+    handles, the scene as it is (no program call)."""
     from txr_torch.apps.demo import update_scene
 
+    if handles is None:
+        return scene
     return update_scene(scene, handles, 0.0, t)

@@ -13,6 +13,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -78,3 +79,38 @@ def run_cell(root, *args, timeout=600):
                        env=env, capture_output=True, text=True, timeout=timeout)
     lines = p.stdout.strip().splitlines()
     return p.returncode, (json.loads(lines[-1]) if lines else None), p.stderr
+
+
+def spheres_config(n):
+    """A static configuration that is not the demo: ``n`` spheres in a
+    square grid on a thin floor box, three point lights without
+    attenuation, a background colour; no textures, handles or animation.
+    The same ``n`` gives the same scene."""
+    rng = np.random.default_rng(n)
+    side = int(np.ceil(np.sqrt(n)))
+    pitch = 16.0 / side
+    mats = [dict(color=[0.5, 0.45, 0.35], specular=30, reflect=0.5),
+            dict(color=[0.2, 0.4, 0.8], specular=60, reflect=0.3),
+            dict(color=[0.9, 0.9, 0.9], specular=10, reflect=0.0)]
+    spheres = []
+    for k in range(n):
+        r = pitch * float(0.2 + 0.25 * rng.random())
+        x, z = -8.0 + pitch * (k % side + 0.5), 2.0 + pitch * (k // side + 0.5)
+        spheres.append(dict(name=f"s{k}", pos=[x, -1.5 + r, z], radius=r, mat=mats[k % 3]))
+    return dict(
+        name=f"spheres-{n}", precision="float32",
+        render=dict(width=1920, height=1080, iterations=5, extra_refraction_steps=0,
+                    aa_preset=None, fused="auto", texture_lod=True, edge_threshold=0.02,
+                    edge_budget_mult=20),
+        material_defaults=dict(color=[0.0, 0.0, 0.0], specular=0.0, reflect=0.0, refract=0.0,
+                               absorb=[0.0, 0.0, 0.0], diffuse=0.7, kd=0.8, ks=0.2),
+        scene=dict(
+            camera=dict(pos=[0.0, 4.0, -6.0], quat=dict(euler_deg=[20.0, 0.0, 0.0])),
+            ambient_color=[0.05, 0.05, 0.05], shadow_ambient=[0.1, 0.1, 0.1],
+            bg_color=[0.078, 0.361, 0.753],
+            lights_point=[dict(pos=p, color=[1.0, 1.0, 1.0], intensity=0.6, radius=0.1,
+                               linear_k=0.0, quadratic_k=0.0)
+                          for p in ([4.0, 6.0, 2.0], [-5.0, 8.0, 4.0], [0.0, 5.0, -3.0])],
+            spheres=spheres,
+            boxes=[dict(name="floor", pos=[0.0, -1.6, 10.0], form=[9.0, 0.1, 9.0],
+                        mat=dict(color=[0.8, 0.8, 0.7], specular=10))]))

@@ -73,9 +73,10 @@ MAKERS = dict(banded=_banded, ring=_ring, crate=_crate, starfield=_starfield)
 def make(cfg, seed, dev):
     """{texture name: float32 RGBA tensor on ``dev``} of the configuration,
     drawn from ``seed``; names in the configuration's order, each from a
-    generator of its own so a texture does not depend on the others."""
+    generator of its own so a texture does not depend on the others (none
+    without a ``textures`` section)."""
     out = {}
-    for k, (name, spec) in enumerate(cfg["textures"]["kinds"].items()):
+    for k, (name, spec) in enumerate(cfg.get("textures", {}).get("kinds", {}).items()):
         g = torch.Generator(device=dev)
         g.manual_seed((int(seed) * 1_000_003 + k) % (1 << 63))
         out[name] = MAKERS[spec["kind"]](g, dev, spec).contiguous()
