@@ -573,7 +573,7 @@ def main(argv=None):
         from txr_torch.kernels.scene_table import pack_scene
         from txr_torch.apps.demo import build_scene
 
-        build.build_all([("step_probe", ()), ("shadow_sweep", ()),
+        build.build_all([("step_probe", ()), ("shadow_sweep", ()), ("lane_map", ()),
                          ("nearest_hit", build.topology(pack_scene(build_scene(64, 36)[0],
                                                                    None)[1]))])
     for cell in ([args.cell] if args.cell else CELLS):

@@ -7,10 +7,10 @@ card; run from the repository root:
     python3 chip_smoke.py
 
 Phases, one line each:
-  1. build     compile the step-probe, consume and shadow-sweep kernels and
-               the demo topology's nearest-hit kernel (its counts fixed at compile
-               time) from the sources in the checkout, one nvcc each, all
-               at once
+  1. build     compile the step-probe, consume, shadow-sweep and lane-map
+               kernels and the demo topology's nearest-hit kernel (its
+               counts fixed at compile time) from the sources in the
+               checkout, one nvcc each, all at once
   2. probe     probe kernel vs its plain PyTorch twin on the card: the demo's
                1080p primary rays plus 8192 random rays, both probe variants;
                then the state at step 1 of the 1080p frame with its alive
@@ -125,7 +125,7 @@ Phases, one line each:
                render_jit in turns (CUDA events and host clock), and at
                1 spp a profiler trace of one replayed frame (device ms,
                busy share) whose kernel events equal the counted
-               launches (b); a call that wants a gradient raises (c); a
+               launches, the lane map's among them (b); a call that wants a gradient raises (c); a
                gather of 16-byte rows by index_select and along the
                transposed table's columns, ms and bit for bit (d)
  24. train jit  the captured train step (``train_jit_phase``) at 1080p on
@@ -156,7 +156,10 @@ device time in a torch.profiler trace (``device_ms``, the kernel alone), vs
 its twin and two bounds of txr_torch/utils/flops.py (bench_torch.py's
 model): the work these inputs need (live lanes, a torus line outside its
 bounding sphere as one sphere test, a solid shadow ray at its cheapest
-occluder) and the full work of every lane.  Every line those bounds priced
+occluder) and the full work of every lane.  The lane map's two kernels
+(``lane_map_phase``) run instead on the states each compacted step of a
+1080p render_jit frame feeds them, byte for byte their twins', and their
+times and bounds are the frame's sums.  Every line those bounds priced
 also goes through the uncut torus solve, which must hit no line the
 kernels' cull rejects.
 Last, a JSON line of per-kernel numbers, the card's name and power limit,
@@ -217,6 +220,9 @@ DIST_REL = 1e-4
 
 # the kernels of the probe route's bounce step (render/fused.py)
 PROBE_ROUTE = ("step_probe", "glossy_rays", "step_consume")
+# the kernels of a compacted bounce step's lane map (kernels/lane_map.py),
+# on either route; render_jit compacts at 1080p, not at the gate's size
+LANE_MAP = ("lane_compact", "lane_scatter")
 
 # The kernel comparisons' thresholds (as tpu_smoke.py:101-108): f32 root
 # placement at silhouettes may legitimately flip a lane between kernel and
@@ -561,17 +567,19 @@ def cuda_ms(fn, reps):
 
 
 def device_ms(fn, kernel, reps):
-    """Mean device time of the CUDA kernel named ``kernel`` per call of
-    ``fn``, from a torch.profiler trace of ``reps`` calls: the kernel alone,
-    without the wrapper's host work or the other small ops it launches.
-    Should three traces each hold fewer than half of the launches (the
-    tracer drops device records at times), the mean replay time of one CUDA
-    graph of ``reps`` calls instead, which adds the graph's own gaps and
-    the other ops ``fn`` launches."""
+    """Mean device time of the CUDA kernel named ``kernel`` (or of each
+    kernel of a tuple of names, summed: the kernels one call launches) per
+    call of ``fn``, from a torch.profiler trace of ``reps`` calls: the
+    kernels alone, without the wrapper's host work or the other small ops
+    it launches.  Should three traces each hold fewer than half of the
+    launches of a kernel (the tracer drops device records at times), the
+    mean replay time of one CUDA graph of ``reps`` calls instead, which
+    adds the graph's own gaps and the other ops ``fn`` launches."""
     import torch
 
     from txr_torch.apps.profile_frame import device_events, is_kernel, profiled
 
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -581,9 +589,11 @@ def device_ms(fn, kernel, reps):
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(path)
-            times = [ms for name, ms in device_events(path) if is_kernel(name, kernel)]
-        if len(times) >= reps // 2:
-            return sum(times) / len(times)
+            events = device_events(path)
+        times = [[ms for name, ms in events if is_kernel(name, k)] for k in names]
+        if all(len(t) >= reps // 2 for t in times):
+            return sum(sum(t) / len(t) for t in times)
+        times = min(times, key=len)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
@@ -741,6 +751,93 @@ def consume_phase(dev):
         + ("PASS" if launched else "FAIL"))
     if not launched:
         fail("render_jit's frame did not launch glossy_rays and step_consume")
+    return out
+
+
+def lane_map_phase(scene, textures, cfg, dev):
+    """The lane map's kernels on the states the compacted steps of one
+    render_jit frame feed them (its pieces run eagerly, ``uncaptured``, so
+    each call's inputs are kept): ``launch_compact`` against
+    ``compact_ref`` (the lane map, every byte of the C rows, the count) and
+    ``launch_scatter`` against ``scatter_ref`` (every byte of rows[:R], the
+    count), then each step's times: through the wrapper by CUDA events
+    (``ms``), the kernels alone in a trace (``device_ms``), the twin
+    (``plain_ms``), and its least time by ``utils/flops.py`` for these
+    inputs and with every row of C live.  → {"lane_compact" |
+    "lane_scatter": dict(ms, device_ms, plain_ms, needed, full: the
+    frame's sums; steps: a dict per step)}; fails on a byte that
+    differs."""
+    import torch
+
+    from txr_torch.apps.profile_frame import KERNELS, uncaptured
+    from txr_torch.kernels import lane_map as lm
+    from txr_torch.kernels.step_consume import STATE_KEYS
+    from txr_torch.render.render import clear_jit_cache, render_jit
+    from txr_torch.utils import flops
+
+    kept, compact, scatter = [], lm.compact, lm.scatter
+
+    def keep_compact(st, C):
+        kept.append([{k: v.clone() for k, v in st.items()}, C])
+        return compact(st, C)
+
+    def keep_scatter(new, lane, rows, live):
+        kept[-1] += [{k: v.clone() for k, v in new.items()}, lane.clone(),
+                     {k: v.clone() for k, v in rows.items()}, live.clone()]
+        return scatter(new, lane, rows, live)
+
+    clear_jit_cache()
+    try:
+        with uncaptured(), torch.no_grad():
+            render_jit(scene, textures, cfg, device=dev)    # the warm-up steps every capacity
+            lm.compact, lm.scatter = keep_compact, keep_scatter
+            render_jit(scene, textures, cfg, device=dev)
+    finally:
+        lm.compact, lm.scatter = compact, scatter
+        clear_jit_cache()
+    same = lambda a, b: torch.equal(a.contiguous().view(-1).view(torch.uint8),
+                                    b.contiguous().view(-1).view(torch.uint8))
+    out = {k: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, needed=(0, 0), full=(0, 0), steps=[])
+           for k in LANE_MAP}
+    for st, C, new, lane, rows, live in kept:
+        R = st["alive"].shape[0]
+        k_lane, k_sub, k_live = lm.launch_compact(st, C)
+        t_lane, t_sub, t_live = lm.compact_ref(st, C)
+        k_rows = {k: v.clone() for k, v in rows.items()}
+        t_rows = {k: v.clone() for k, v in rows.items()}
+        s_live, u_live = live.clone(), live.clone()
+        lm.launch_scatter(new, lane, k_rows, s_live)
+        lm.scatter_ref(new, lane, t_rows, u_live)
+        equal = dict(
+            lane_compact=(same(k_lane, t_lane) and same(k_live, t_live)
+                          and all(same(k_sub[k], t_sub[k]) for k in STATE_KEYS)),
+            lane_scatter=(same(s_live, u_live)
+                          and all(same(k_rows[k][:R], t_rows[k][:R]) for k in STATE_KEYS)))
+        if not all(equal.values()) or not same(lane, t_lane):
+            fail(f"the lane map's kernels differ from their twins at R = {R}, C = {C}: {equal}, "
+                 f"the step's own lane map {'equal' if same(lane, t_lane) else 'differs'}")
+        every = torch.zeros(C, dtype=torch.int64, device=dev)
+        calls = dict(lane_compact=(lambda: lm.launch_compact(st, C), lambda: lm.compact_ref(st, C),
+                                   flops.lane_compact_work(st, lane),
+                                   flops.lane_compact_work(st, every)),
+                     lane_scatter=(lambda: lm.launch_scatter(new, lane, k_rows, s_live),
+                                   lambda: lm.scatter_ref(new, lane, t_rows, u_live),
+                                   flops.lane_scatter_work(lane, R),
+                                   flops.lane_scatter_work(every, R)))
+        for name, (kernel, twin, needed, full) in calls.items():
+            twin()
+            step = dict(R=R, C=C, live=int((lane < R).sum()), ms=cuda_ms(kernel, KERNEL_REPS),
+                        device_ms=device_ms(kernel, KERNELS[name][1], KERNEL_REPS),
+                        plain_ms=cuda_ms(twin, 2), bound_ms=flops.bound_ms(*needed))
+            row = out[name]
+            row["steps"].append(step)
+            for key in ("ms", "device_ms", "plain_ms"):
+                row[key] += step[key]
+            row["needed"] = tuple(a + b for a, b in zip(row["needed"], needed))
+            row["full"] = tuple(a + b for a, b in zip(row["full"], full))
+        del k_sub, t_sub, k_rows, t_rows
+    if not kept:
+        fail(f"a render_jit frame at {cfg.width}x{cfg.height} ran no compacted step")
     return out
 
 
@@ -1151,6 +1248,7 @@ def jit_phase(dev):
     routes = (("auto", PROBE_ROUTE), ("off", ("nearest_hit", "shadow_sweep")))
     scene_cpu, handles = build_scene(W, H)
     build.build_all([("step_probe", ()), ("step_consume", ()), ("shadow_sweep", ()),
+                     ("lane_map", ()),
                      ("nearest_hit", build.topology(pack_scene(scene_cpu, None)[1]))])
     scene = scene_cpu.to(dev)
     later = update_scene(scene_cpu, handles, 1.0 / 30.0, ASSET_T).to(dev)
@@ -1233,15 +1331,15 @@ def jit_phase(dev):
                 if aa == "1spp":
                     prof = profile_replay(run_j)
                     row["profile"] = prof
-                    for k in kernels:
+                    for k in kernels + (LANE_MAP if fused == "auto" else ()):
                         replay[k] = dict(jit_launches_per_frame=prof["counted"][k],
                                          replay_device_ms_per_launch=(
                                              prof["kernel_ms"][k] / max(prof["traced"][k], 1)))
             ok = (all(row[p]["bit_for_bit"] for p in ("start", f"t={ASSET_T:g}s"))
-                  and all(row["launches_per_replay"][k] for k in kernels)
+                  and all(row["launches_per_replay"][k] for k in kernels + LANE_MAP)
                   and ("profile" not in row
                        or all(row["profile"]["traced"][k] == row["profile"]["counted"][k]
-                              for k in kernels)))
+                              for k in kernels + LANE_MAP)))
             log(f"phase jit 1080p ({W}x{H}, fused={fused}, {aa}): {json.dumps(row)}; "
                 f"{time.perf_counter() - ph0:.1f} s -> {'PASS' if ok else 'FAIL'}")
             if not ok:
@@ -1326,6 +1424,7 @@ def train_jit_phase(dev):
     routes = (("auto", PROBE_ROUTE), ("off", ("nearest_hit", "shadow_sweep")))
     true_cpu, _ = build_scene(W, H)
     build.build_all([("step_probe", ()), ("step_consume", ()), ("shadow_sweep", ()),
+                     ("lane_map", ()),
                      ("nearest_hit", build.topology(pack_scene(true_cpu, None)[1]))])
     true = true_cpu.to(dev)
     guess = unflatten_like(true_cpu, {
@@ -1508,7 +1607,7 @@ def train_jit_phase(dev):
             # (d) a traced replay
             prof = profile_replay(lambda: cap.step(0))
             row["profile"] = prof
-            for k in kernels:
+            for k in kernels + (LANE_MAP if fused == "auto" else ()):
                 replay[k] = dict(train_jit_launches_per_step=prof["counted"][k],
                                  train_replay_device_ms_per_launch=(
                                      prof["kernel_ms"][k] / max(prof["traced"][k], 1)))
@@ -1576,8 +1675,9 @@ def train_jit_phase(dev):
         # every kernel's events: the probe route's backward launches the
         # sweeps too (its glossy pass, recomputed in saved mode)
         ok = (row["first_loss_bit_for_bit"] and not bad and row["sync_free"] is True
-              and prof["traced"] == prof["counted"] and all(prof["counted"][k] for k in kernels)
-              and all(row["launches_per_replay"][k] for k in kernels)
+              and prof["traced"] == prof["counted"]
+              and all(prof["counted"][k] for k in kernels + LANE_MAP)
+              and all(row["launches_per_replay"][k] for k in kernels + LANE_MAP)
               and max(row["fit_rel"]) <= TRAIN_FIT_REL and row["resume_bit_for_bit"]
               and row["world_1_loss_rel"] <= 1e-6 and row["world_1_worst_grad_rel"] <= DIST_REL
               and all(row["world_1_launches"][k] for k in kernels))
@@ -1686,7 +1786,7 @@ def main():
     shard_tops = [lib for n in RING_WORLDS for sc in (scene, tie_scene())
                   for lib in shard_topologies(sc, n)]
     built = build.build_all([("step_probe", ()), ("step_consume", ()), ("shadow_sweep", ()),
-                             ("nearest_hit", demo_top)] + shard_tops)
+                             ("lane_map", ()), ("nearest_hit", demo_top)] + shard_tops)
     build_s = time.perf_counter() - t0
     log(f"phase build: {build_s:.1f} s for {len(built)} libraries (one nvcc each, in parallel)")
     for (name, defines), (path, nvcc_log) in built.items():
@@ -2670,6 +2770,26 @@ def main():
         rows.append(dict(name=name, route="cuda", source=f"txr_torch/kernels/csrc/{source}.cu",
                          replaces=sources[name], launches=main_launches[name],
                          max_abs_err=err[name], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None, bound_full_ms=full_ms,
+                         bound_full_by=full_by, **extra))
+
+    # the lane map's kernels, per 1080p render_jit frame: the sums over its
+    # compacted steps (no TPU kernel: the JAX package compacts in XLA)
+    for name, lmr in lane_map_phase(scene, textures, cfg, dev).items():
+        bound_ms, bound_by = flops.bound_ms(*lmr["needed"]), flops.bound_by(*lmr["needed"])
+        full_ms, full_by = flops.bound_ms(*lmr["full"]), flops.bound_by(*lmr["full"])
+        extra = dict(device_ms=lmr["device_ms"], steps=lmr["steps"],
+                     bench_roofline_share=bench_shares.get(name), **jit_rows[name],
+                     **train_rows[name])
+        log(f"kernel {name}: {lmr['ms']:.4f} ms a 1080p render_jit frame over its "
+            f"{len(lmr['steps'])} compacted steps, through its wrapper by CUDA events (twins "
+            f"{lmr['plain_ms']:.3f} ms), bound {bound_ms:.4f} ms by {bound_by} for the work these "
+            f"inputs need ({lmr['needed'][1] / 1e6:.0f} MB), {full_ms:.4f} ms with every row "
+            f"live; byte for byte the twins'; " + json.dumps(extra))
+        rows.append(dict(name=name, route="cuda", source="txr_torch/kernels/csrc/lane_map.cu",
+                         replaces="none (txr/render/compact.py, in XLA)",
+                         launches=jit_rows[name]["jit_launches_per_frame"], max_abs_err=0.0,
+                         ms=lmr["ms"], plain_ms=lmr["plain_ms"], bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None, bound_full_ms=full_ms,
                          bound_full_by=full_by, **extra))
 

@@ -44,5 +44,6 @@ def test_dryrun_multichip_on_four_cpu_ranks(capsys):
     assert len(out) == 4 and np.isfinite(out[0]["loss"])
     assert all(o["loss"] == out[0]["loss"] for o in out)
     assert all(o["launches"] == {"step_probe": 0, "glossy_rays": 0, "step_consume": 0,
-                                 "nearest_hit": 0, "shadow_sweep": 0}
+                                 "nearest_hit": 0, "shadow_sweep": 0, "lane_compact": 0,
+                                 "lane_scatter": 0}
                for o in out)

@@ -14,7 +14,8 @@ twins do.
   route (the nearest-hit and shadow-sweep kernels), is priced at no more
   than the full work of its twin on the same lanes, and at more than zero
   where a lane lives; a line the model prices as crossing a torus's
-  bounding sphere is one the kernel's cull keeps.
+  bounding sphere is one the kernel's cull keeps; each lane-map call of a
+  render_jit frame with compacted steps is priced once, by its bytes.
 """
 
 import jax
@@ -216,3 +217,38 @@ def test_consume_calls_of_a_frame_priced_one_for_one(monkeypatch):
         assert call["bound_ms"] == flops.bound_ms(call["ops"], call["bytes"])
         assert call["bound_ms"] > 0 or call["live"] == 0, call
     assert sum(c["live"] for c in mine) > 0
+
+
+def test_lane_map_calls_priced_one_for_one(monkeypatch):
+    """render_jit's frame with the card's compacted capacities forced (the
+    CPU steps every lane): each ``lane_map.compact`` and ``scatter`` call is
+    priced once, by bytes alone, at least the live rows moved in and out
+    and at most every row of the map and the alive bytes."""
+    from txr_torch.render import graphs
+    from txr_torch.render import render as rr
+
+    monkeypatch.setattr(graphs, "capacities",
+                        lambda R, dev: [R] + [c for c in (512, 256, 128) if c < R])
+    scene, _ = tdemo.build_scene(W, H)
+    cfg = RenderConfig(width=W, height=H, iterations=5, extra_refraction_steps=6)
+    rr.clear_jit_cache()
+    try:
+        with torch.no_grad(), flops.priced_launches() as calls:
+            rr.render_jit(scene, tdemo.demo_textures(), cfg, device="cpu")
+        (frame,) = rr._FRAMES.values()
+        (unit,) = frame.programs[0].units.values()
+    finally:
+        rr.clear_jit_cache()
+    compacts = [c for c in calls if c["kernel"] == "lane_compact"]
+    scatters = [c for c in calls if c["kernel"] == "lane_scatter"]
+    # one call a step run below R (the CPU runs no warm-up)
+    below = [C for C in unit.steps_run if C < unit.R]
+    assert below and [c["lanes"] for c in compacts] == below and len(scatters) == len(below)
+    R, S = unit.R, flops.STATE_BYTES
+    for c, s in zip(compacts, scatters):
+        C, live = c["lanes"], c["live"]
+        assert (s["lanes"], s["live"]) == (C, live) and live <= C
+        assert c["ops"] == s["ops"] == 0
+        assert R + (S + 8) * C + S * live <= c["bytes"] <= R + (2 * S + 8) * C + S
+        assert s["bytes"] == 8 * C + 2 * S * live + 8
+        assert c["bound_ms"] == flops.bound_ms(0, c["bytes"])

@@ -12,7 +12,8 @@
   loop's one extra step reads 0), also where the loop stops at
   ``max_steps`` (the last count is then read after the tail, under
   ``txr.wait_last``); ``rows`` is each step's capacity (R on the CPU),
-  over both programs of an edge-AA frame;
+  over both programs of an edge-AA frame; ``compacted`` adds 1 a step run
+  below its unit's rays (capacities forced as the card's);
 * under ``torch.profiler``, each span but the root shows once as a
   ``user_annotation`` of its name, its length the in-memory span's.
 """
@@ -27,6 +28,7 @@ import torch
 from txr_torch.apps import demo as tdemo
 from txr_torch.apps import inverse as tinv
 from txr_torch.diff import optimize as om
+from txr_torch.render import graphs
 from txr_torch.render import render as rr
 from txr_torch.render import trace as tr
 from txr_torch.render.texture import TextureSet, with_mips
@@ -214,3 +216,23 @@ def test_spans_in_the_profilers_trace(demo, tracer, tmp_path):
     for name, us in mine:
         got = by_name[name].pop(0)
         assert got <= us + 2.0 and us - got <= max(500.0, 0.05 * us), (name, got, us)
+
+
+def test_compacted_counter_counts_the_steps_below_capacity(demo, tracer, monkeypatch):
+    """With the card's compacted capacities forced (the CPU steps every
+    lane), ``compacted`` adds 1 for each step of either program run below
+    its unit's rays, and nothing for the others."""
+    monkeypatch.setattr(graphs, "capacities",
+                        lambda R, dev: [R] + [c for c in (1024, 512, 256, 128) if c < R])
+    cfg = CFG.with_aa_preset("ultra")
+    try:
+        _frame(demo, cfg)
+        (rec,) = tracer.records()
+        units = _units(cfg)
+    finally:
+        rr.clear_jit_cache()
+    c = rec["counters"]
+    below = [C for u in units for C in u.steps_run if C < u.R]
+    assert len(units) == 2 and len(below) >= 2, [u.steps_run for u in units]
+    assert c["compacted"] == [1] * len(below)
+    assert len(c["rows"]) == sum(len(u.steps_run) for u in units)

@@ -40,6 +40,7 @@ import torch
 from txr_torch import resolve_device
 from txr_torch.apps.demo import build_scene, demo_textures
 from txr_torch.diff.optimize import _Fit
+from txr_torch.kernels import lane_map as lm
 from txr_torch.kernels import nearest_hit as nh
 from txr_torch.kernels import shadow_sweep as ss
 from txr_torch.kernels import launch_counts, reset_launch_counts
@@ -51,12 +52,15 @@ from txr_torch.render.texture import with_mips
 from txr_torch.render.trace import RenderConfig, auto_refraction_steps
 from txr_torch.scene.types import float_leaves, unflatten_like
 
-# launch counter and device kernel name of each txr kernel (``is_kernel``)
-KERNELS = dict(step_probe=(sp.step_probe, "step_probe_kernel"),
-               glossy_rays=(sc.launch_rays, "step_consume_rays_kernel"),
-               step_consume=(sc.launch, "step_consume_kernel"),
-               nearest_hit=(nh.launch, "nearest_hit_kernel"),
-               shadow_sweep=(ss.launch, "shadow_sweep_kernel"))
+# launch counter of each txr kernel and the device kernels (``is_kernel``
+# names) that one counted call launches, one of each
+KERNELS = dict(step_probe=(sp.step_probe, ("step_probe_kernel",)),
+               glossy_rays=(sc.launch_rays, ("step_consume_rays_kernel",)),
+               step_consume=(sc.launch, ("step_consume_kernel",)),
+               nearest_hit=(nh.launch, ("nearest_hit_kernel",)),
+               shadow_sweep=(ss.launch, ("shadow_sweep_kernel",)),
+               lane_compact=(lm.launch_compact, ("lane_count_kernel", "lane_compact_kernel")),
+               lane_scatter=(lm.launch_scatter, ("lane_scatter_kernel",)))
 
 # trace event categories of work on the device and of the host's work
 # (kineto's chrome trace)
@@ -75,6 +79,15 @@ def is_kernel(event, kname):
     is a launch of the kernel named ``kname``: that exact name, not a
     longer one that holds it."""
     return re.search(rf"(?:^|[\s:]){re.escape(kname)}[(<]", event) is not None
+
+
+def kernel_events(dev_events, knames):
+    """(calls, ms) of a txr kernel whose one call launches the device
+    kernels ``knames``, in the device events ``dev_events``: the calls of
+    which every kernel is in the trace, and the device ms of them all."""
+    calls = min(sum(1 for n, _, _ in dev_events if is_kernel(n, k)) for k in knames)
+    ms = sum(d for n, _, d in dev_events if any(is_kernel(n, k) for k in knames)) / 1e3
+    return calls, ms
 
 
 def trace_events(path):
@@ -144,8 +157,8 @@ def profile_replay(fn, tries=3):
     torch.profiler, after a warm call → dict(wall_ms, device_ms, busy_share,
     device_events, counted, traced, kernel_ms, top_ops, idle_gaps):
     ``counted`` the launches the wrappers count from zero around it,
-    ``traced`` the device events of each txr kernel in the trace,
-    ``kernel_ms`` their device ms.  Up to ``tries`` traces, until one holds
+    ``traced`` each txr kernel's calls in the trace (``kernel_events``),
+    ``kernel_ms`` the device ms of all their kernels.  Up to ``tries`` traces, until one holds
     every counted launch (the tracer may drop device records)."""
     fn()
     torch.cuda.synchronize()
@@ -161,10 +174,9 @@ def profile_replay(fn, tries=3):
             path = os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(path)
             dev_events, host_events = trace_events(path)
-        traced = {k: sum(1 for n, _, _ in dev_events if is_kernel(n, kname))
-                  for k, (_, kname) in KERNELS.items()}
-        kernel_ms = {k: sum(d for n, _, d in dev_events if is_kernel(n, kname)) / 1e3
-                     for k, (_, kname) in KERNELS.items()}
+        seen = {k: kernel_events(dev_events, knames) for k, (_, knames) in KERNELS.items()}
+        traced = {k: calls for k, (calls, _) in seen.items()}
+        kernel_ms = {k: ms for k, (_, ms) in seen.items()}
         device = sum(d for _, _, d in dev_events) / 1e3
         out = dict(wall_ms=wall, device_ms=device, busy_share=device / wall,
                    device_events=len(dev_events), counted=counted, traced=traced,
@@ -244,9 +256,8 @@ def main(argv=None):
         prof.export_chrome_trace(path)
         events, _ = trace_events(path)
     device_ms = sum(d for _, _, d in events) / 1e3
-    kernels = {k: dict(launches=launches[k],
-                       ms=sum(d for name, _, d in events if is_kernel(name, kname)) / 1e3)
-               for k, (_, kname) in KERNELS.items()}
+    kernels = {k: dict(launches=launches[k], ms=kernel_events(events, knames)[1])
+               for k, (_, knames) in KERNELS.items()}
     summary = dict(
         width=args.width, height=args.height, backward=args.backward, jit=args.jit,
         fused=args.fused,

@@ -1,7 +1,7 @@
 """The CUDA kernels (``step_probe``, ``glossy_rays`` and ``step_consume``,
-``nearest_hit``, ``shadow_sweep``), their plain twins (the consume's are
-``render/fused.py``'s), their build and the packed scene table they
-read."""
+``nearest_hit``, ``shadow_sweep``, ``lane_compact`` and ``lane_scatter``),
+their plain twins (the consume's are ``render/fused.py``'s), their build
+and the packed scene table they read."""
 
 import functools
 
@@ -9,11 +9,12 @@ import functools
 @functools.cache
 def _counters():
     """{kernel: its wrapper}, built once (a graph replay adds to them)."""
-    from txr_torch.kernels import nearest_hit, shadow_sweep, step_consume, step_probe
+    from txr_torch.kernels import lane_map, nearest_hit, shadow_sweep, step_consume, step_probe
 
     return dict(step_probe=step_probe.step_probe, glossy_rays=step_consume.launch_rays,
                 step_consume=step_consume.launch, nearest_hit=nearest_hit.launch,
-                shadow_sweep=shadow_sweep.launch)
+                shadow_sweep=shadow_sweep.launch, lane_compact=lane_map.launch_compact,
+                lane_scatter=lane_map.launch_scatter)
 
 
 def launch_counts():

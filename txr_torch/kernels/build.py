@@ -2,8 +2,9 @@
 ``csrc/`` with ``nvcc`` at first use into ``kernels/_build``.
 
 A library is a source and its ``-D`` defines.  ``step_probe``,
-``step_consume`` and ``shadow_sweep`` take every scene in one library; ``nearest_hit`` fixes
-the scene's slot counts at compile time, so it is built once per topology
+``step_consume``, ``shadow_sweep`` and ``lane_map`` take every scene in one
+library; ``nearest_hit`` fixes the scene's slot counts at compile time, so
+it is built once per topology
 (``topology(hdr)``), as the Pallas kernel bakes its counts in at trace
 time.  Each library is named by a hash of the compiler flags, its defines,
 its source and every header the source includes, so a change to
@@ -119,8 +120,9 @@ def load(name, symbol, argtypes, defines=()):
 
 def run(name, symbol, argtypes, device, hdr, *args, defines=()):
     """Launch through ``symbol`` of library (``name``, ``defines``) on
-    ``device``'s current stream: the scene header as host ints, then
-    ``args`` (ints for pointers and counts), then the stream.  Raises on a
+    ``device``'s current stream: the scene header as host ints (none for a
+    library that reads no scene: ``hdr`` None), then ``args`` (ints for
+    pointers and counts), then the stream.  Raises on a
     non-zero return: a CUDA error, or (negative) a table the library was
     not built for.  Nothing here waits on the device, so a CUDA graph can
     capture the launch once the library is loaded (``render_jit`` loads
@@ -128,10 +130,12 @@ def run(name, symbol, argtypes, device, hdr, *args, defines=()):
     import torch
 
     fn = load(name, symbol, argtypes, defines)
-    hdr_c = (ctypes.c_int * len(hdr))(*hdr)     # host memory, read by the launcher
+    if hdr is not None:
+        hdr_c = (ctypes.c_int * len(hdr))(*hdr)     # host memory, read by the launcher
+        args = (ctypes.addressof(hdr_c),) + args
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(ctypes.addressof(hdr_c), *args, stream)
+        rc = fn(*args, stream)
     if rc < 0:
         raise RuntimeError(f"{name}: the packed table does not match the library's topology "
                            f"{defines}")

@@ -48,7 +48,7 @@ import math
 
 import torch
 
-from txr_torch.kernels import add_launch_counts, launch_counts
+from txr_torch.kernels import add_launch_counts, lane_map, launch_counts
 from txr_torch.render import trace as tr
 from txr_torch.render.intersect import fixed_shapes
 from txr_torch.scene.types import unflatten_like
@@ -210,10 +210,11 @@ class _Blob:
 class TraceUnit:
     """``trace``'s bounce loop over R rays as pieces: ``head`` makes the
     primary state from the rays in ``ro``, ``rd`` (static [R, 3] inputs)
-    in buffers of R + 1 rows, the last a row that compacted steps write
-    their fill lanes to; a step for each capacity C of ``capacities`` runs
-    one bounce step of ``cfg``'s route on the live lanes gathered into C
-    rows (every lane when C = R) and writes the new state over the old,
+    in buffers of R + 1 rows, the last a spare row (``lane_map.scatter``'s
+    twin writes its fill lanes there; nothing reads it); a step for each
+    capacity C of ``capacities`` runs one bounce step of ``cfg``'s route
+    on the live lanes gathered into C rows (every lane when C = R; below R
+    by ``kernels/lane_map.py``) and writes the new state over the old,
     then counts the live lanes; ``tail`` adds the environment of the rays
     that missed → ``color`` [R, 3].  ``frame`` holds the static scene,
     textures and packed table (``frame.scene``, ``frame.textures``,
@@ -286,16 +287,7 @@ class TraceUnit:
             sub = st
         else:
             # the live lanes in order into C rows, the rest of them fills
-            alive = st["alive"]
-            pos = torch.cumsum(alive, 0) - 1
-            lane = torch.full((C + 1,), R, dtype=torch.int64, device=alive.device)
-            lane.index_put_((torch.where(alive & (pos < C), pos, C),),
-                            torch.arange(R, device=alive.device))
-            lane = lane[:C]
-            fill = lane == R
-            src = torch.clamp(lane, max=R - 1)
-            sub = {k: st[k].index_select(0, src) for k in tr.STATE_KEYS}
-            sub["alive"] = sub["alive"] & ~fill
+            lane, sub, live = lane_map.compact(st, C)
         if self.train:
             stage = self.stage[C].views
             new, saved = tr.step_saving(f.scene, f.textures, self.cfg, sub, f.table)
@@ -307,10 +299,10 @@ class TraceUnit:
         if C == R:
             for k in tr.STATE_KEYS:
                 st[k].copy_(new[k])
+            live = st["alive"].sum()
         else:
-            for k in tr.STATE_KEYS:
-                self.rows[k].index_put_((lane,), new[k])
-        self.live[C] = st["alive"].sum()
+            lane_map.scatter(new, lane, self.rows, live)
+        self.live[C] = live
 
     def _tail(self):
         self.color = tr.shade_misses(self.frame.scene, self.frame.textures, self.st)
@@ -379,8 +371,9 @@ class TraceUnit:
         each one's stage copied out, the final state copied out); the step
         after the last live one changed nothing, so it has no VJP to run.
         With the tracer on, each step adds its live lanes, capacity and 1
-        to the counters ``lanes``, ``rows`` and ``steps``: the count it
-        reads one step late is the lanes entering the step before."""
+        to the counters ``lanes``, ``rows`` and ``steps`` (and 1 to
+        ``compacted`` at a capacity below R): the count it reads one step
+        late is the lanes entering the step before."""
         traced = profiling.enabled()
         with span("txr.head"):
             self.ro.copy_(ro)
@@ -406,6 +399,8 @@ class TraceUnit:
             if traced:
                 count("rows", C)
                 count("steps", 1)
+                if C < self.R:
+                    count("compacted", 1)
             if self.train:
                 saves.append((C, self.stage[C].buf.clone()))
         with span("txr.tail"):

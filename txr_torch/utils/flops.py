@@ -16,7 +16,8 @@ bookkeeping, and the backward pass.
 
 The second half prices one launch of each of the port's kernels
 (``step_probe_work``, ``nearest_hit_work``, ``shadow_sweep_work``,
-``glossy_rays_work`` and ``step_consume_work``) and turns
+``glossy_rays_work``, ``step_consume_work``, ``lane_compact_work`` and
+``lane_scatter_work``) and turns
 it into a bound (``bound_ms``): the larger of its operations over
 the card's FP32 peak and its bytes over the card's memory rate.  A launch
 is priced from the scene's counts and its live lanes only, never from its
@@ -431,22 +432,41 @@ def step_consume_work(buf, hdr, textures, cfg, st, f, i, gf=None, gi=None):
     return ops + sum(p[0] for p in parts), nbytes + sum(p[1] for p in parts)
 
 
+def lane_compact_work(st, lane):
+    """(operations, bytes) of one lane_compact call of lane_map.cu: the
+    alive bytes read, each mapped live lane's state row read, a fill's one
+    shared row read once, the lane map and the C rows written."""
+    R, C = st["alive"].shape[0], lane.shape[0]
+    live = int((lane < R).sum())
+    return 0, R + STATE_BYTES * (live + (live < C)) + (8 + STATE_BYTES) * C
+
+
+def lane_scatter_work(lane, R):
+    """(operations, bytes) of one lane_scatter call of lane_map.cu: the lane
+    map read, each non-fill lane's new row read and written back, the count
+    written."""
+    return 0, 8 * lane.shape[0] + 2 * STATE_BYTES * int((lane < R).sum()) + 8
+
+
 @contextlib.contextmanager
 def priced_launches():
     """While open, every call the render path makes to a kernel's wrapper
     (``render/fused.py: step_probe``, ``glossy_rays``, ``step_consume``,
-    ``render/intersect.py: nearest_hit_sweep``, ``shadow_sweep``, which
-    those modules look up at each call) runs as before and is priced:
+    ``render/intersect.py: nearest_hit_sweep``, ``shadow_sweep``,
+    ``kernels/lane_map.py: compact``, ``scatter``, which their callers look
+    up at each call) runs as before and is priced:
     yields a list that gains dict(kernel, lanes, live, ops, bytes,
     bound_ms) per call.  Pricing reads
     the host, so a pass under it is not a timed one; it cannot run inside
     a graph capture."""
+    from txr_torch.kernels import lane_map
     from txr_torch.kernels.scene_table import pack_scene, set_flags
     from txr_torch.render import fused, intersect
 
     calls = []
     probe, sweep, shadow = fused.step_probe, intersect.nearest_hit_sweep, intersect.shadow_sweep
     rays, consume = fused.glossy_rays, fused.step_consume
+    compact, scatter = lane_map.compact, lane_map.scatter
 
     def note(kernel, n, mask, work):
         live = n if mask is None else int(mask.to(torch.bool).sum())
@@ -486,11 +506,24 @@ def priced_launches():
              step_consume_work(*table, textures, cfg, st, pr.f, pr.i, *g))
         return out
 
+    def priced_compact(st, C):
+        lane, sub, live = compact(st, C)
+        R = st["alive"].shape[0]
+        note("lane_compact", C, lane < R, lane_compact_work(st, lane))
+        return lane, sub, live
+
+    def priced_scatter(new, lane, rows, live):
+        scatter(new, lane, rows, live)
+        R = rows["alive"].shape[0] - 1
+        note("lane_scatter", lane.shape[0], lane < R, lane_scatter_work(lane, R))
+
     fused.step_probe, fused.glossy_rays, fused.step_consume = (priced_probe, priced_rays,
                                                                priced_consume)
     intersect.nearest_hit_sweep, intersect.shadow_sweep = priced_sweep, priced_shadow
+    lane_map.compact, lane_map.scatter = priced_compact, priced_scatter
     try:
         yield calls
     finally:
         fused.step_probe, fused.glossy_rays, fused.step_consume = probe, rays, consume
         intersect.nearest_hit_sweep, intersect.shadow_sweep = sweep, shadow
+        lane_map.compact, lane_map.scatter = compact, scatter

@@ -45,7 +45,9 @@ Spans (``PERF.md`` §3 names the metric that reads each):
 
 Counters, added per bounce step (``graphs.TraceUnit.run``): ``lanes``,
 the live lanes entering it; ``rows``, its capacity, the rows it gathers,
-steps and scatters; ``steps``, 1; and ``captures``, 1 per capture.
+steps and scatters; ``steps``, 1; ``compacted``, 1 at a capacity below
+the unit's rays (the lane map's kernels ran); and ``captures``, 1 per
+capture.
 ``100 · Σ lanes / Σ rows`` is the share of stepped rows that were live.
 Counters of the pose (``apps.demo.update_scene``), which belong to the
 next unit as ``txr.pose`` does: ``poses``, 1 a call; ``pose_replays``, 1
