@@ -138,14 +138,6 @@ Phases, one line each:
                of both within 1e-4; a resume after 2 of 4 steps bit for
                bit; make_train_step in a world of 1 against the captured
                step
- 25. bench     both cells of BENCHMARK.json through bench_torch.main with
-               short windows (``bench_phase``): their gates, their checks
-               of the windows against the JAX package's reference and the
-               f64 oracle, their metric lines, a profiled replay whose
-               kernel events equal the counted launches and the priced
-               calls, every kernel's roofline share
-               (txr_torch/utils/flops.py's least time for the replay's
-               work over the kernel's device time) below 1
 The nearest-hit libraries of the ring's shard topologies are built in
 phase 1, before any rank is spawned.  Every phase from 4 on counts kernel
 launches from zero around its own run (a spawned rank counts its own and
@@ -153,10 +145,10 @@ returns them) and fails if a kernel of its path did not launch.
 Then each kernel alone, one full-width launch on tables packed once, timed
 through its wrapper by CUDA events (``ms``, as earlier records) and by its
 device time in a torch.profiler trace (``device_ms``, the kernel alone), vs
-its twin and two bounds of txr_torch/utils/flops.py (bench_torch.py's
-model): the work these inputs need (live lanes, a torus line outside its
-bounding sphere as one sphere test, a solid shadow ray at its cheapest
-occluder) and the full work of every lane.  The lane map's two kernels
+its twin and two bounds of txr_torch/utils/flops.py: the work these inputs
+need (live lanes, a torus line outside its bounding sphere as one sphere
+test, a solid shadow ray at its cheapest occluder) and the full work of
+every lane.  The lane map's two kernels
 (``lane_map_phase``) run instead on the states each compacted step of a
 1080p render_jit frame feeds them, byte for byte their twins', and their
 times and bounds are the frame's sums.  Every line those bounds priced
@@ -204,8 +196,6 @@ TRAIN_ROUNDS = 2
 TRAIN_LR = 5e-3
 TRAIN_REL = 1e-5
 TRAIN_FIT_REL = 1e-4
-# phase bench: bench_torch.py's cells with short windows
-BENCH_ARGS = ["--frames", "6", "--steps", "2", "--repeats", "5"]
 # the assets-8k phases: the reference's planet textures are 8192×4096 JPEGs;
 # the demo at ASSET_T seconds into its animation, where jupiter and saturn
 # are both in view (at 96×54, some 200 and 40 pixels)
@@ -242,9 +232,9 @@ UV_ABS = 1e-3
 GRAD_REL, GRAD_ABS = 2e-2, 1e-6
 
 # Every bound below is txr_torch/utils/flops.py's least time for the work
-# the inputs need (bench_torch.py's model).  Every line it prices as a ray of
-# a kernel is also run through the torus's uncut Ferrari solve: a line that
-# the kernels' cull rejects and the solve hits would change a pixel.
+# the inputs need.  Every line it prices as a ray of a kernel is also run
+# through the torus's uncut Ferrari solve: a line that the kernels' cull
+# rejects and the solve hits would change a pixel.
 CULL = dict(lines=0, culled=0, culled_hits=0)
 
 
@@ -1687,56 +1677,6 @@ def train_jit_phase(dev):
     return replay
 
 
-def bench_phase():
-    """Phase 25: both cells of BENCHMARK.json through ``bench_torch.main``
-    with short windows (``BENCH_ARGS``): every line it prints parses, each
-    cell passes its gate and its check and ends with its metric, its
-    profiled replay's kernel events equal the counted launches (and the
-    bench's priced calls, or it exits 1), and every kernel's roofline
-    share (``utils/flops.py``'s least time over the kernel's device time in
-    the replay) is below 1.  → {kernel: {cell: roofline share}}."""
-    import contextlib
-    import io
-
-    import bench_torch
-
-    out = io.StringIO()
-    try:
-        with contextlib.redirect_stdout(out):
-            bench_torch.main(BENCH_ARGS)
-        exit_code = 0
-    except SystemExit as e:
-        exit_code = e.code
-    finally:
-        for line in out.getvalue().splitlines():
-            log(f"phase bench: {line}")
-    try:
-        lines = [json.loads(line) for line in out.getvalue().splitlines()]
-    except ValueError as e:
-        fail(f"bench_torch.py printed a line that does not parse: {e}")
-    shares, bad = {}, []
-    for cell in bench_torch.CELLS:
-        mine = {r["phase"]: r for r in lines if r.get("cell") == cell}
-        result, prof = mine.get("result", {}), mine.get("profile", {})
-        if not (mine.get("gate", {}).get("ok") and "check" in mine
-                and "error" not in mine["check"] and result.get("correct")
-                and result.get(result.get("metric"), 0) > 0
-                and prof.get("traced") == prof.get("counted")):
-            bad.append(cell)
-            continue
-        for k, row in result["kernels"].items():
-            shares.setdefault(k, {})[cell] = row["roofline_share"]
-            # 0 where its launches had no live lane
-            if row["roofline_share"] is None or row["roofline_share"] >= 1.0:
-                bad.append(f"{cell} {k}")
-    ok = exit_code == 0 and not bad
-    log(f"phase bench ({' '.join(BENCH_ARGS)}): exit {exit_code}, roofline shares "
-        f"{json.dumps(shares)} -> {'PASS' if ok else 'FAIL ' + str(bad)}")
-    if not ok:
-        fail("bench_torch.py's cells: see the lines above")
-    return shares
-
-
 def main():
     import torch
 
@@ -2662,11 +2602,6 @@ def main():
     train_rows = train_jit_phase(dev)
     log(f"phase train jit: {time.perf_counter() - ph0:.1f} s in all")
 
-    # 25. bench ----------------------------------------------------------------------
-    ph0 = time.perf_counter()
-    bench_shares = bench_phase()
-    log(f"phase bench: {time.perf_counter() - ph0:.1f} s in all")
-
     # each kernel alone, on tables packed once, at the widths of earlier
     # records: the 1080p primary rays, in raster order, every lane live (the
     # probe, the sweep);
@@ -2734,7 +2669,6 @@ def main():
         rays = ns if name == "shadow_sweep" else n
         extra.update(jit_rows[name])
         extra.update(train_rows[name])
-        extra["bench_roofline_share"] = bench_shares.get(name)
         if name == "step_probe":
             extra.update(frame_ms=probe_frame_ms, frame_device_ms=probe_frame_device_ms,
                          aa_1080p_edge_pass_launches=edge_launches["step_probe"])
@@ -2778,8 +2712,7 @@ def main():
     for name, lmr in lane_map_phase(scene, textures, cfg, dev).items():
         bound_ms, bound_by = flops.bound_ms(*lmr["needed"]), flops.bound_by(*lmr["needed"])
         full_ms, full_by = flops.bound_ms(*lmr["full"]), flops.bound_by(*lmr["full"])
-        extra = dict(device_ms=lmr["device_ms"], steps=lmr["steps"],
-                     bench_roofline_share=bench_shares.get(name), **jit_rows[name],
+        extra = dict(device_ms=lmr["device_ms"], steps=lmr["steps"], **jit_rows[name],
                      **train_rows[name])
         log(f"kernel {name}: {lmr['ms']:.4f} ms a 1080p render_jit frame over its "
             f"{len(lmr['steps'])} compacted steps, through its wrapper by CUDA events (twins "

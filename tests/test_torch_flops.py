@@ -16,7 +16,14 @@ twins do.
   where a lane lives; a line the model prices as crossing a torus's
   bounding sphere is one the kernel's cull keeps; each lane-map call of a
   render_jit frame with compacted steps is priced once, by its bytes.
+* The work model imports neither JAX nor the JAX package, in a fresh
+  interpreter.
 """
+
+import ast
+import pathlib
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -252,3 +259,20 @@ def test_lane_map_calls_priced_one_for_one(monkeypatch):
         assert R + (S + 8) * C + S * live <= c["bytes"] <= R + (2 * S + 8) * C + S
         assert s["bytes"] == 8 * C + 2 * S * live + 8
         assert c["bound_ms"] == flops.bound_ms(0, c["bytes"])
+
+
+def test_flops_imports_no_jax():
+    """Neither flops.py's own imports nor the modules a fresh interpreter
+    loads with it name jax, jaxlib or txr."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    tree = ast.parse((root / "txr_torch" / "utils" / "flops.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    jaxy = ("jax", "jaxlib", "txr")
+    assert names and not [n for n in names if n.split(".")[0] in jaxy], names
+    run = subprocess.run(
+        [sys.executable, "-c", "import sys, txr_torch.utils.flops; "
+         f"print(sorted(m for m in sys.modules if m.split('.')[0] in {jaxy!r}))"],
+        cwd=root, capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert run.stdout.strip() == "[]", run.stdout

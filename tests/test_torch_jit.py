@@ -27,7 +27,11 @@ the card's lane lists are held to render_jit bit for bit by chip_smoke.py.
   otherwise);
 * a step on a state where every lane is dead changes no bit, on both
   routes, and the driver runs at most one step past the last live one;
-* a call that wants a gradient raises.
+* a call that wants a gradient raises;
+* the viewer's loop (rtbench's ``viewer-30fps``): one cached render_jit
+  frame per route and AA setting, driven through four consecutive poses of
+  the demo's animation (``update_scene``, t = t0 + k/30 s), gives render's
+  image of each pose bit for bit.
 """
 
 import dataclasses
@@ -266,3 +270,38 @@ def test_render_jit_refuses_a_gradient(demo):
     with torch.no_grad():
         torch.testing.assert_close(rr.render_jit(wants_grad, tex, cfg, device="cpu"),
                                    demo[3]["auto"][1], rtol=0, atol=0)
+
+
+# two bounce steps a frame: the loop of poses is what is tested here, the
+# bounce loop at SMALL's depth above
+VIEW = dict(width=16, height=8, iterations=2, extra_refraction_steps=0)
+AA = {"1spp": lambda cfg: cfg, "ultra": lambda cfg: cfg.with_aa_preset("ultra")}
+
+
+@pytest.fixture(scope="module")
+def viewer(demo):
+    """The demo scene at 16×8 and its animation handles, with the demo
+    fixture's textures."""
+    scene, handles = tdemo.build_scene(16, 8)
+    return scene, handles, demo[2]
+
+
+@pytest.mark.parametrize("t0", [0.0, 60.0])
+@pytest.mark.parametrize("aa", AA)
+@pytest.mark.parametrize("fused", ROUTES)
+def test_viewer_loop_equals_render(viewer, fused, aa, t0):
+    """Four frames of the viewer's loop through one render_jit frame (the
+    cache is kept, so a (route, AA) frame serves both start times): each
+    equals render of its pose bit for bit, and the animation moves the
+    image."""
+    scene, handles, tex = viewer
+    cfg = AA[aa](RenderConfig(**VIEW, fused=fused))
+    frames, imgs = set(), []
+    for k in range(4):
+        posed = tdemo.update_scene(scene, handles, 0.0, t0 + k / 30)
+        got = rr.render_jit(posed, tex, cfg, device="cpu")
+        torch.testing.assert_close(got, rr.render(posed, tex, cfg, device="cpu"), rtol=0, atol=0)
+        frames |= {id(f) for key, f in rr._FRAMES.items() if key[1] == cfg}
+        imgs.append(got)
+    assert len(frames) == 1
+    assert not torch.equal(imgs[0], imgs[-1])

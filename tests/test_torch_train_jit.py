@@ -35,7 +35,11 @@ every float leaf) at 16×8 and 8×8.
   on the card;
 * a run's train frame is its own, and the one kept after it is the next
   run's; a scene of another topology raises;
-* ``trace.vjp``'s seeds give autograd's float32 summation order.
+* ``trace.vjp``'s seeds give autograd's float32 summation order;
+* (g) the captured step at a fixed pose of the demo's animation (rtbench's
+  fit traffic: every float leaf, mean(img²), Adam at rate 0), at 1 spp and
+  with edge AA: three steps give the first step's loss and gradients bit
+  for bit and leave the parameters as they were.
 """
 
 import dataclasses
@@ -374,3 +378,27 @@ def test_vjp_seeds_keep_autograds_order():
     (added,) = tr.vjp(inner, [x0], [g_h])
     assert torch.equal(seeded, whole)
     assert not torch.equal(added + g_x, whole)
+
+
+@pytest.mark.parametrize("supersample", [1, 2], ids=["1spp", "edge"])
+@pytest.mark.parametrize("fused", ROUTES)
+def test_fixed_pose_steps_repeat(demo, fused, supersample):
+    """(g): the demo at t = 60 s toward a black target; edge AA at k = 2
+    with a budget of 48 pixels."""
+    scene, handles = tdemo.build_scene(16, 8)
+    posed = tdemo.update_scene(scene, handles, 0.0, 60.0)
+    cfg = RenderConfig(width=16, height=8, **DEMO, supersample=supersample, edge_budget_mult=2,
+                       fused=fused)
+    fit = om._Fit(posed, demo[1], cfg, torch.zeros((8, 16, 3)), lr=0.0, device="cpu")
+    params0 = {p: v.detach().clone() for p, v in fit.params.items()}
+    steps = []
+    for i in range(3):
+        loss, _ = fit.step(i)
+        steps.append((loss.clone(), {p: v.grad.clone() for p, v in fit.params.items()}))
+    (loss, grads), later = steps[0], steps[1:]
+    assert float(loss) > 0 and all(bool(g.isfinite().all()) for g in grads.values())
+    assert sum(bool(g.any()) for g in grads.values()) >= 10
+    for lk, gk in later:
+        assert torch.equal(lk, loss)
+        assert all(torch.equal(gk[p], g) for p, g in grads.items())
+    assert all(torch.equal(v.detach(), params0[p]) for p, v in fit.params.items())

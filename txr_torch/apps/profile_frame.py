@@ -21,7 +21,8 @@ step): forward, loss, backward, gradient norm and update.
 ``profile_replay`` (a replay's device time, its kernels, the device
 operations of most time and the device's longest idle gaps) and
 ``uncaptured`` (a frame's pieces run eagerly on the card, each kernel call
-through its Python wrapper) serve bench_torch.py and chip_smoke.py.
+through its Python wrapper) serve chip_smoke.py and the lane map's card
+tests (tests/test_torch_lane_map.py).
 """
 
 from __future__ import annotations
