@@ -14,7 +14,11 @@ Phases, one line each:
   2. probe     probe kernel vs its plain PyTorch twin on the card: the demo's
                1080p primary rays plus 8192 random rays, both probe variants;
                then the state at step 1 of the 1080p frame with its alive
-               mask; every lane, fills included
+               mask; every lane, fills included; each launch again without
+               fills (FLAG_FILL clear, as the forward path runs it) into
+               rows set to NaN: the rows a reader reads those of the filled
+               launch bit for bit and, the fills written in, the twin's;
+               NaN on every other row
   3. sweeps    nearest-hit kernel vs twin on every lane, fills included:
                the same rays, then step 1's state with its alive mask, then
                the same rays on a second topology (the demo without its
@@ -32,12 +36,20 @@ Phases, one line each:
                zero around one frame, frame time by CUDA events; then for
                each bounce step its alive lanes, alive-and-hit lanes, rays
                crossing the torus's bounding sphere, the probe's time on the
-               step's state (CUDA events through the wrapper, and the kernel's
-               device time) and its two bounds, and the probe's sum per
+               step's state without fills, as the path runs it, and with
+               them (CUDA events through the wrapper, and the kernel's
+               device time) and its bounds, and the probe's sum per
                frame; then the eager route's nearest_hit on each of its
                bounce steps' states with their alive masks: lanes, time,
                device time (also of a sweep of every lane) and the bound of
                the live work
+  6a. probe fill  every probe launch (the step's and the glossy one) of a
+               replayed 1080p render_jit frame of the demo at t = 60.5 s,
+               1 spp and "ultra", at R and each compacted capacity: without
+               fills into NaN rows against the filled launch (as in phase
+               2), its live, missing and light-bulb lanes, its time with
+               and without fills (``graph_ms``) and its bytes priced each
+               way, the dead lanes' fill bytes beside; the frame's sums
   6b. consume  the consume's two kernels, glossy rays and consume
                (``consume_phase``), vs their twins on
                each bounce step's state of the 1080p frame, the same probe
@@ -144,7 +156,8 @@ launches from zero around its own run (a spawned rank counts its own and
 returns them) and fails if a kernel of its path did not launch.
 Then each kernel alone, one full-width launch on tables packed once, timed
 through its wrapper by CUDA events (``ms``, as earlier records) and by its
-device time in a torch.profiler trace (``device_ms``, the kernel alone), vs
+device time in a torch.profiler trace (``device_ms``, the kernel alone; the
+probe without fills, as the path runs it, and with them, ``_filled``), vs
 its twin and two bounds of txr_torch/utils/flops.py: the work these inputs
 need (live lanes, a torus line outside its bounding sphere as one sphere
 test, a solid shadow ray at its cheapest occluder) and the full work of
@@ -180,6 +193,8 @@ FRAMES = 5
 TRAIN_STEPS = 3
 OPT_STEPS = 5
 KERNEL_REPS = 20
+PROBE_TRIALS = 7          # phase probe fill: replays of a graph of KERNEL_REPS launches
+PROBE_T = 60.5            # phase probe fill: the demo's pose, seconds into its animation
 AA_K = 4                  # the "ultra" preset's factor
 AA_FRAMES = 3
 JIT_ROUNDS = 4            # phase jit: rounds of render, render_jit, render_jit, render
@@ -472,6 +487,84 @@ def compare_probe(fk, ik, fr, ir, counts):
     return ok, stats
 
 
+def probe_into(buf, hdr, ro, rd, pix, alive, f, i):
+    """The probe kernel launched on the packed table (buf, hdr) into rows
+    the caller holds, f [NF, N] f32 and i [3, N] int32 (``launch`` makes
+    its own): what a launch without FLAG_FILL does not store keeps its
+    value."""
+    from txr_torch.kernels import build
+    from txr_torch.kernels import step_probe as sp
+    from txr_torch.kernels.scene_table import check_mask
+
+    mask = check_mask("step_probe", ro.device, alive, ro.shape[0])
+    build.run("step_probe", "txr_step_probe", sp._ARGS, ro.device, hdr, buf.data_ptr(),
+              float(pix), ro.data_ptr(), rd.data_ptr(),
+              None if mask is None else mask.data_ptr(), f.data_ptr(), i.data_ptr(),
+              ro.shape[0])
+
+
+NAN_BITS = 0x7FC00000     # NaN's bits, set in the int rows before a launch
+
+
+def probe_over_nan(buf, hdr, ro, rd, pix, alive):
+    """The probe kernel with the header's FLAG_FILL cleared, launched into
+    rows set to NaN beforehand (the int rows to NaN's bits) → (f, i)."""
+    import torch
+
+    from txr_torch.kernels import step_probe as sp
+    from txr_torch.kernels.scene_table import counts_of
+
+    N = ro.shape[0]
+    f = torch.full((sp.n_rows(counts_of(hdr)), N), float("nan"), device=ro.device)
+    i = torch.full((3, N), NAN_BITS, dtype=torch.int32, device=ro.device)
+    probe_into(buf, unfilled(hdr), ro, rd, pix, alive, f, i)
+    return f, i
+
+
+def unfilled(hdr):
+    """The header ``hdr`` with FLAG_FILL cleared and every other flag kept:
+    the flags of a forward step's probe and of a glossy probe."""
+    from txr_torch.kernels.scene_table import FLAG_FILL
+
+    return hdr[:9] + (hdr[9] & ~FLAG_FILL,) + hdr[10:]
+
+
+def check_unfilled(fn, in_, fk, ik, alive, counts):
+    """A probe launch without fills into rows set to NaN (fn, in_;
+    ``probe_over_nan``) against the same launch with them (fk, ik): the
+    rows a reader reads (step_probe.cu, "Lanes") bit for bit — t on every
+    live lane, the base rows and ints on a live hit, every row on a live
+    hit that shades, that is one that is not a light bulb — and NaN on
+    every other row of every lane → (ok, stats, (f, i): fn, in_ with the
+    fills written where nothing was stored, to compare with the twin)."""
+    import torch
+
+    from txr_torch.kernels.primitives import INF_T
+    from txr_torch.kernels.scene_table import SLOT_ORDER
+
+    base = 23
+    bits = lambda v: v.contiguous().view(torch.int32)
+    live = torch.ones_like(fk[0], dtype=torch.bool) if alive is None else alive.to(torch.bool)
+    hit = live & (fn[0] < 1e30)
+    shades = hit & (in_[0] < sum(counts[k] for k in SLOT_ORDER[:-1]))
+    read = torch.zeros_like(fn, dtype=torch.bool)
+    read[0] = live
+    read[1:base] = hit
+    read[base:] = shades
+    read_i = hit.expand(3, -1)
+    stored_as_filled = (bool((bits(fn) == bits(fk))[read].all())
+                        and bool((in_ == ik)[read_i].all()))
+    nan_elsewhere = (bool(torch.isnan(fn[~read]).all())
+                     and bool((in_[~read_i] == NAN_BITS).all()))
+    fills = torch.zeros_like(fn)
+    fills[0] = INF_T
+    stats = dict(live=int(live.sum()), miss=int((live & ~hit).sum()),
+                 bulb=int((hit & ~shades).sum()), shades=int(shades.sum()),
+                 read_rows_as_filled=stored_as_filled, nan_elsewhere=nan_elsewhere)
+    return (stored_as_filled and nan_elsewhere, stats,
+            (torch.where(read, fn, fills), torch.where(read_i, in_, torch.zeros_like(in_))))
+
+
 def compare_nearest(tk, sk, tr, sr):
     """nearest_hit kernel (tk, sk) vs twin (tr, sr) → (ok, stats); every
     lane, fills included: a lane agrees when both hit the same slot with t
@@ -741,6 +834,123 @@ def consume_phase(dev):
         + ("PASS" if launched else "FAIL"))
     if not launched:
         fail("render_jit's frame did not launch glossy_rays and step_consume")
+    return out
+
+
+def graph_ms(fn, reps=KERNEL_REPS, trials=PROBE_TRIALS):
+    """ms a call of ``fn`` from a CUDA graph of ``reps`` calls, replayed
+    ``trials`` times and timed by CUDA events: the median replay over
+    ``reps`` (no host work between the calls)."""
+    import statistics
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    out = [cuda_ms(graph.replay, 1) / reps for _ in range(trials)]
+    del graph
+    return statistics.median(out)
+
+
+def probe_fill_phase(dev):
+    """Every step-probe launch of one replayed 1080p render_jit frame of
+    the demo posed at PROBE_T seconds, 1 spp and "ultra" (its pieces run
+    eagerly, ``uncaptured``, so each launch's rays and mask are kept; the
+    frame asks for no fills in any of them): the launch without fills,
+    into rows set to NaN, against the same launch with them
+    (``check_unfilled``); its live, missing, light-bulb and shading lanes;
+    its time each way (``graph_ms``, into rows held, the device's work
+    alone); its bytes as ``utils/flops.py`` prices them each way, and the
+    fill rows the filled launch writes on dead lanes, which no price
+    counts; one line a launch → {preset: the frame's sums}; fails where a launch without fills stores other rows than a reader
+    reads."""
+    import torch
+
+    from txr_torch.apps import demo as demo_app
+    from txr_torch.apps.profile_frame import uncaptured
+    from txr_torch.kernels import step_probe as sp
+    from txr_torch.kernels.scene_table import pack_scene, set_flags
+    from txr_torch.render import fused as rfused
+    from txr_torch.render.render import clear_jit_cache, render_jit
+    from txr_torch.render.texture import with_mips
+    from txr_torch.render.trace import RenderConfig, _pix_angle
+    from txr_torch.utils import flops
+
+    scene, handles = demo_app.build_scene(W, H)
+    scene = demo_app.update_scene(scene.to(dev), handles, 0.0, PROBE_T)
+    textures = with_mips(demo_app.demo_textures().to(dev))
+    buf, hdr0 = table = pack_scene(scene, textures.atlas)
+    row_bytes = 4 * sp.n_rows(scene.counts) + 12
+    base = RenderConfig(width=W, height=H, iterations=5, extra_refraction_steps=6)
+    out = {}
+    for preset in ("1spp", "ultra"):
+        cfg = base if preset == "1spp" else base.with_aa_preset(preset)
+        kept, probe = [], rfused._probe
+
+        def keep(scene, textures, cfg, ro, rd, shade_flipped, table=None, alive=None,
+                 fill=True):
+            hdr = set_flags(hdr0, one_side=cfg.plane_oneside,
+                            shadow_enabled=cfg.shadow_enabled, do_fresnel=cfg.do_fresnel,
+                            tir=cfg.total_internal_reflection, shade_flipped=shade_flipped)
+            kept.append(dict(hdr=hdr, pix=_pix_angle(cfg) or 0.0, ro=ro.clone(), rd=rd.clone(),
+                             alive=None if alive is None else alive.clone(),
+                             glossy=not shade_flipped, fill=fill))
+            return probe(scene, textures, cfg, ro, rd, shade_flipped, table, alive, fill)
+
+        clear_jit_cache()
+        try:
+            with uncaptured(), torch.no_grad():
+                render_jit(scene, textures, cfg, device=dev)    # the warm-up steps every capacity
+                rfused._probe = keep
+                render_jit(scene, textures, cfg, device=dev)
+        finally:
+            rfused._probe = probe
+            clear_jit_cache()
+        if not kept or any(c["fill"] for c in kept):
+            fail(f"probe fill ({preset}): the frame's {len(kept)} probe launches "
+                 f"{[c['fill'] for c in kept]} did not all ask for no fills")
+        tot = dict(launches=len(kept), lanes=0, live=0, miss=0, bulb=0, ms=0.0, ms_filled=0.0,
+                   step_ms=0.0, step_ms_filled=0.0, glossy_ms=0.0, glossy_ms_filled=0.0,
+                   MB=0.0, MB_filled=0.0, MB_dead_fills=0.0)
+        for c in kept:
+            hdr, N = c["hdr"], c["ro"].shape[0]
+            args = (buf, hdr, c["ro"], c["rd"], c["pix"], c["alive"])
+            fk, ik = sp.launch(*args)
+            fn, in_ = probe_over_nan(*args)
+            ok, st, _ = check_unfilled(fn, in_, fk, ik, c["alive"], scene.counts)
+            if not ok:
+                fail(f"probe fill ({preset}, {N} lanes, glossy {c['glossy']}): the launch without "
+                     f"fills stores other rows than a reader reads: {json.dumps(st)}")
+            f = torch.empty_like(fk)
+            i = torch.empty_like(ik)
+            row = dict(lanes=N, glossy=c["glossy"], **{k: st[k] for k in ("live", "miss", "bulb")})
+            for tag, h in (("", unfilled(hdr)), ("_filled", hdr)):
+                row["ms" + tag] = graph_ms(lambda: probe_into(buf, h, c["ro"], c["rd"], c["pix"],
+                                                              c["alive"], f, i))
+                work = flops.step_probe_work(buf, h, c["ro"], c["rd"], c["alive"], fk, ik)
+                row["MB" + tag] = work[1] / 1e6
+                row["bound_ms" + tag] = flops.bound_ms(*work)
+            row["MB_dead_fills"] = (N - st["live"]) * row_bytes / 1e6
+            part = "glossy" if c["glossy"] else "step"
+            for k in ("lanes", "live", "miss", "bulb", "ms", "ms_filled", "MB", "MB_filled",
+                      "MB_dead_fills"):
+                tot[k] += row[k]
+            tot[f"{part}_ms"] += row["ms"]
+            tot[f"{part}_ms_filled"] += row["ms_filled"]
+            log(f"phase probe fill ({preset}, {part} probe): " + json.dumps(row))
+            del fk, ik, fn, in_, f, i
+        log(f"phase probe fill ({preset}): every launch of the frame stores only the rows a "
+            f"reader reads -> PASS; the frame's sums: " + json.dumps(tot))
+        out[preset] = tot
+        del kept
     return out
 
 
@@ -1753,6 +1963,20 @@ def main():
     ro_all = torch.cat([ro, ro2]).contiguous()
     rd_all = torch.cat([rd, rd2]).contiguous()
     err = {}
+
+    def without_fills(buf, hdr, ro_, rd_, alive, fk, ik, fr, ir, what):
+        # the same launch without FLAG_FILL, as the forward path runs it
+        fn, in_ = probe_over_nan(buf, hdr, ro_, rd_, pix, alive)
+        ok, st, (fc, ic) = check_unfilled(fn, in_, fk, ik, alive, ncount)
+        ok_twin, st_twin = compare_probe(fc, ic, fr, ir, ncount)
+        err["step_probe"] = max(err["step_probe"], st_twin["max_abs_err"])
+        log(f"phase probe ({what}, without fills, into rows set to NaN): {json.dumps(st)}; "
+            f"its read rows, the fills elsewhere, vs the twin: {json.dumps(st_twin)}"
+            + (" PASS" if ok and ok_twin else " FAIL"))
+        if not (ok and ok_twin):
+            fail("step_probe kernel without fills stores other rows than a reader reads, or "
+                 "disagrees with its twin")
+
     for flipped in (True, False):
         fk, ik = sp.step_probe(scene, textures.atlas, ro_all, rd_all, pix_angle=pix,
                                shade_flipped=flipped, device=dev)
@@ -1765,6 +1989,8 @@ def main():
             + json.dumps(st) + (" PASS" if ok else " FAIL"))
         if not ok:
             fail("step_probe kernel disagrees with its twin")
+        without_fills(buf, hdr, ro_all, rd_all, None, fk, ik, fr, ir,
+                      f"shade_flipped={flipped}, {ro_all.shape[0]} rays")
         del fk, ik, fr, ir
     # with a real mask: the state at step 1 of the 1080p frame, its alive lanes
     cfg = RenderConfig(width=W, height=H, iterations=5,
@@ -1783,6 +2009,8 @@ def main():
             + (" PASS" if ok else " FAIL"))
         if not ok:
             fail("step_probe kernel with a lane mask disagrees with its twin")
+        without_fills(table[0], hdr_f, s1["ro"], s1["rd"], s1["alive"], fk, ik, fr, ir,
+                      f"step 1 of the 1080p frame, alive mask, shade_flipped={flipped}")
         del fk, ik, fr, ir
 
     # 3. sweep kernels vs twins ------------------------------------------------
@@ -1882,31 +2110,45 @@ def main():
         f"rays/s, launches {launches}/frame, peak {peak_gb:.2f} GB")
     target = img.detach()
     del img
-    # the probe on each bounce step's state: lanes, work, time, bounds
-    probe_frame_ms = probe_frame_device_ms = 0.0
+    # the probe on each bounce step's state: lanes, work, time, bounds; timed
+    # without fills, as the forward path launches it, and with them
+    hdr_n = unfilled(hdr)
+    probe_frame = dict(ms=0.0, device_ms=0.0, ms_filled=0.0, device_ms_filled=0.0)
     for k, st in enumerate(states):
-        args = (buf, hdr, st["ro"], st["rd"], pix, st["alive"])
-        fk, ik = sp.launch(*args)
-        ms = cuda_ms(lambda: sp.launch(*args), KERNEL_REPS)
-        dev_ms = device_ms(lambda: sp.launch(*args), "step_probe_kernel", KERNEL_REPS)
-        probe_frame_ms += ms
-        probe_frame_device_ms += dev_ms
+        fk, ik = sp.launch(buf, hdr, st["ro"], st["rd"], pix, st["alive"])
         crossing = probe_lines(scene, buf, hdr, st["ro"], st["rd"], st["alive"], fk, ik)
-        ops, nbytes = flops.step_probe_work(buf, hdr, st["ro"], st["rd"], st["alive"], fk, ik)
-        need_ms, need_by = flops.bound_ms(ops, nbytes), flops.bound_by(ops, nbytes)
+        timed = {}
+        for tag, h in (("", hdr_n), ("_filled", hdr)):
+            args = (buf, h, st["ro"], st["rd"], pix, st["alive"])
+            timed["ms" + tag] = cuda_ms(lambda: sp.launch(*args), KERNEL_REPS)
+            timed["device_ms" + tag] = device_ms(lambda: sp.launch(*args), "step_probe_kernel",
+                                                 KERNEL_REPS)
+            work = flops.step_probe_work(buf, h, st["ro"], st["rd"], st["alive"], fk, ik)
+            timed["bound_ms" + tag] = flops.bound_ms(*work)
+            timed["bound_by" + tag] = flops.bound_by(*work)
+            timed["MB" + tag] = work[1] / 1e6
+        ops = work[0]
+        for key in probe_frame:
+            probe_frame[key] += timed[key]
         full_ops = flops.step_flops(ncount, L) * W * H
         full_bytes = W * H * probe_lane_bytes + buf.numel() * 4
         full_ms, full_by = flops.bound_ms(full_ops, full_bytes), flops.bound_by(full_ops, full_bytes)
         hits = int((st["alive"] & (fk[0] < 1e30)).sum())
         log(f"phase forward step {k}: alive {int(st['alive'].sum())}, alive and hit {hits}, "
-            f"crossing the torus sphere {crossing} (of the alive), probe {ms:.4f} ms through "
-            f"its wrapper by CUDA events (kernel device time {dev_ms:.4f} ms), bound "
-            f"{need_ms:.4f} ms by {need_by} for this work ({ops / 1e9:.3f} GFLOP, "
-            f"{nbytes / 1e6:.0f} MB), {full_ms:.4f} ms by {full_by} at full work")
+            f"crossing the torus sphere {crossing} (of the alive), probe without fills "
+            f"{timed['ms']:.4f} ms through its wrapper by CUDA events (kernel device time "
+            f"{timed['device_ms']:.4f} ms), bound {timed['bound_ms']:.4f} ms by "
+            f"{timed['bound_by']} for this work ({ops / 1e9:.3f} GFLOP, {timed['MB']:.0f} MB); "
+            f"with fills {timed['ms_filled']:.4f} ms (device {timed['device_ms_filled']:.4f} ms, "
+            f"bound {timed['bound_ms_filled']:.4f} ms, {timed['MB_filled']:.0f} MB, the dead "
+            f"lanes' fills not priced); {full_ms:.4f} ms by {full_by} at full work")
         del fk, ik
-    log(f"phase forward: probe {probe_frame_ms:.3f} ms per frame over {len(states)} bounce "
-        f"steps by CUDA events ({probe_frame_device_ms:.3f} ms kernel device time; the glossy "
-        f"passes' launches not included)")
+    log(f"phase forward: probe {probe_frame['ms']:.3f} ms per frame over {len(states)} bounce "
+        f"steps by CUDA events without fills ({probe_frame['device_ms']:.3f} ms kernel device "
+        f"time), {probe_frame['ms_filled']:.3f} ms with them "
+        f"({probe_frame['device_ms_filled']:.3f} ms); the glossy passes' launches not included")
+    # 6a. the probe with and without fills on every launch of a replayed frame
+    fill_rows = probe_fill_phase(dev)
 
     # 6b. consume
     consume = consume_phase(dev)
@@ -2614,28 +2856,32 @@ def main():
                               ns * (28 + 4 + 12 * ncount["rings"])))
     full = {k: (ops, nbytes + buf.numel() * 4) for k, (ops, nbytes) in full.items()}
     # the consume at full width: the 1080p frame's state at step 0, its probe
-    # rows, and every lane at its most
+    # rows, and every lane at its most; both probes store their fills, since
+    # the twins below read every lane
     with torch.no_grad():
         c_st = frame_states(scene, textures, cfg, dev)[0]
         c_pr = rfused._probe(scene, textures, cfg, c_st["ro"], c_st["rd"], True, table,
                              c_st["alive"])
-        c_glossy = cons.launch_rays(c_st, c_pr, table)[0]
-        c_gpr = rfused.glossy_probe(scene, textures, cfg, c_st, c_pr, table)
+        c_glossy, ro_g, rd_g = cons.launch_rays(c_st, c_pr, table)
+        c_gpr = rfused._probe(scene, textures, cfg, ro_g, rd_g, False, table, c_glossy)
     full["glossy_rays"] = tuple(n * v for v in flops.glossy_lane_most())
     full["step_consume"] = tuple(n * v for v in flops.consume_lane_most(ncount))
     fk, ik = sp.launch(buf, hdr, ro, rd, pix)
     probe_lines(scene, buf, hdr, ro, rd, None, fk, ik)
     lanes = torch.nonzero(sneed).squeeze(-1)
     cull_check(sec, so[lanes].unbind(-1), sd[lanes].unbind(-1))
-    needed = dict(step_probe=flops.step_probe_work(buf, hdr, ro, rd, None, fk, ik),
+    needed = dict(step_probe=flops.step_probe_work(buf, hdr_n, ro, rd, None, fk, ik),
                   glossy_rays=flops.glossy_rays_work(buf, hdr, c_st, c_pr.f, c_pr.i, c_glossy),
                   step_consume=flops.step_consume_work(buf, hdr, textures, cfg, c_st, c_pr.f,
                                                        c_pr.i, c_gpr.f, c_gpr.i),
                   nearest_hit=flops.nearest_hit_work(buf, hdr, ro, rd),
                   shadow_sweep=flops.shadow_sweep_work(
                       buf, hdr, so, sd, sdist, sneed, ss.launch(buf, hdr, so, sd, sdist, sneed)[0]))
+    needed_filled = flops.step_probe_work(buf, hdr, ro, rd, None, fk, ik)
     del fk, ik
-    runs = dict(step_probe=(lambda: sp.launch(buf, hdr, ro, rd, pix),
+    # the probe timed without fills, as the forward path launches it (with
+    # them beside, ``ms_filled``)
+    runs = dict(step_probe=(lambda: sp.launch(buf, hdr_n, ro, rd, pix),
                             lambda: sp.step_probe_ref(buf, hdr, ro, rd, pix)),
                 glossy_rays=(lambda: cons.launch_rays(c_st, c_pr, table),
                              lambda: rfused.glossy_rays_ref(scene, c_st, c_pr)),
@@ -2670,7 +2916,14 @@ def main():
         extra.update(jit_rows[name])
         extra.update(train_rows[name])
         if name == "step_probe":
-            extra.update(frame_ms=probe_frame_ms, frame_device_ms=probe_frame_device_ms,
+            filled = lambda: sp.launch(buf, hdr, ro, rd, pix)
+            extra.update(ms_filled=cuda_ms(filled, KERNEL_REPS),
+                         device_ms_filled=device_ms(filled, "step_probe_kernel", KERNEL_REPS),
+                         bound_ms_filled=flops.bound_ms(*needed_filled),
+                         frame_ms=probe_frame["ms"], frame_device_ms=probe_frame["device_ms"],
+                         frame_ms_filled=probe_frame["ms_filled"],
+                         frame_device_ms_filled=probe_frame["device_ms_filled"],
+                         frames_every_launch=fill_rows,
                          aa_1080p_edge_pass_launches=edge_launches["step_probe"])
         elif name == "glossy_rays":
             extra.update(frame_ms=consume["rays_ms"], frame_device_ms=consume["rays_device_ms"],

@@ -14,10 +14,19 @@
 // with the JAX kernel and the PyTorch twin (step_probe.py:step_probe_ref).
 //
 // Lanes.  `alive` (uint8 [N], or null for every lane) marks the rays whose
-// rows the caller reads.  A lane that is off, or that misses, gets fixed
-// fill rows (t = INF_T, every other row 0, slot/kind/req_k 0); so does the
-// light part of a hit on a light bulb, whose shading no caller reads.  The
-// twin writes the same fills, so kernel and twin agree on every lane.
+// rows the caller reads.  What the kernel stores on the other lanes depends
+// on the header's FLAG_FILL bit:
+//  - set (the rows are saved for a VJP, trace.step_saving, and the twin's
+//    comparisons): an off lane, or one that misses, gets fixed fill rows
+//    (t = INF_T, every other row 0, slot/kind/req_k 0); so do the light rows
+//    of a hit on a light bulb.  The twin writes the same fills, so kernel and
+//    twin agree on every lane;
+//  - clear (a forward step's probe and every glossy probe): the kernel stores
+//    only what the consume kernels read (step_consume.cu).  An off lane gets
+//    nothing, a live miss t = INF_T alone, a bulb hit its 23 base rows and
+//    slot/kind/req_k; every other row of those lanes is left as it was.
+//    The consume reads rows only on alive lanes, t alone on a miss, t and the
+//    slot on a bulb; the glossy rays kernel reads the slot only after a hit.
 //
 // What bounds it: the work of the live lanes.  A ray reads 24 B and writes
 // 4*NF + 12 B (152 B for the demo scene); its sweep and its per-light shadow
@@ -26,7 +35,10 @@
 //  - each block compacts its live lanes into a shared-memory list (ballot,
 //    popcount, per-warp offsets); warps past the live count retire, the
 //    others sweep full warps of live rays, and a block with none skips even
-//    the table copy.  Off lanes write their fills themselves, coalesced;
+//    the table copy.  With FLAG_FILL, off lanes write their fills themselves,
+//    coalesced; without it, such a block returns right after its ballot, and
+//    the stores are the live lanes' alone (most of a frame's probe lanes
+//    are dead: past its first steps, and nearly all of a glossy probe's);
 //  - after the sweep the block compacts again: only hit lanes that are not
 //    a light bulb run the per-light shading probes, from the shadow origin,
 //    shading normal, direction and specular exponent that the sweeping
@@ -94,12 +106,13 @@ __global__ void __launch_bounds__(kThreads)
   const long long base = (long long)blockIdx.x * kThreads;
   const int n_lights = m.n_lp + m.n_ld;
   const int NF = kBaseRows + n_lights * (3 + 3 * m.n_ri);
+  const bool fill = m.flags & FLAG_FILL;
 
   // ---- live lanes: compact, fill the others ---------------------------------
   const long long own = base + tid;
   const bool live = own < N && (alive == nullptr || alive[own] != 0);
   const int n_live = txr::compact(live, tid, kWarps, s_live, s_wc1);
-  if (own < N && !live) {
+  if (fill && own < N && !live) {
     fill_rows(fout, own, N, 0, NF);
     fill_ints(iout, own, N);
   }
@@ -139,8 +152,8 @@ __global__ void __launch_bounds__(kThreads)
     const int b_sp = m.n_pl, b_su = b_sp + m.n_sp, b_bx = b_su + m.n_su, b_to = b_bx + m.n_bx;
     const int b_ri = b_to + m.n_to, b_lp = b_ri + m.n_ri, n_slots = b_lp + m.n_lp;
     if (!hit) {
-      fill_rows(fout, ray, N, 0, NF);
-      fill_ints(iout, ray, N);
+      fill_rows(fout, ray, N, 0, fill ? NF : 1);  // without FLAG_FILL, t alone
+      if (fill) fill_ints(iout, ray, N);
     } else {
       const float ts = tmin;
       const f3 p = {o.x + d.x * ts, o.y + d.y * ts, o.z + d.z * ts};
@@ -299,7 +312,7 @@ __global__ void __launch_bounds__(kThreads)
                               sn.x, sn.y, sn.z, d.x, d.y, d.z, m_spec};
 #pragma unroll
         for (int j = 0; j < 10; ++j) s_in[j][tid] = in[j];
-      } else {
+      } else if (fill) {
         fill_rows(fout, ray, N, kBaseRows, NF);
       }
     }

@@ -307,7 +307,7 @@ __device__ __forceinline__ bool ring_test(const float* Rg, f3 o, f3 d, float& t,
 // texture slots, texture dims, the shading constants), buffer length.
 constexpr int HDR_LEN = 23;
 constexpr int FLAG_ONE_SIDE = 1, FLAG_SHADOW = 2, FLAG_FRESNEL = 4, FLAG_TIR = 8,
-              FLAG_SHADE_FLIPPED = 16;
+              FLAG_SHADE_FLIPPED = 16, FLAG_FILL = 32;
 // record widths of the packed scene table (scene_table.py REC)
 constexpr int RPL = 6, RSP = 9, RSU = 19, RBX = 10, RTO = 9, RRI = 9, RLP = 7, RLD = 4;
 

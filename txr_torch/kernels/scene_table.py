@@ -48,6 +48,7 @@ _TYPES = SLOT_ORDER + ("lights_direct",)
 # (_TYPES order, then mat, texslot, texdim, shade), n_buf
 HDR_LEN = 23
 FLAG_ONE_SIDE, FLAG_SHADOW, FLAG_FRESNEL, FLAG_TIR, FLAG_SHADE_FLIPPED = 1, 2, 4, 8, 16
+FLAG_FILL = 32          # the step probe stores fill rows (step_probe.cu "Lanes")
 
 
 def _flat(*cols):
@@ -56,11 +57,11 @@ def _flat(*cols):
 
 
 def set_flags(hdr, *, one_side=True, shadow_enabled=True, do_fresnel=True, tir=True,
-              shade_flipped=True):
+              shade_flipped=True, fill=True):
     """The header ``hdr`` with its flag word replaced."""
     flags = ((FLAG_ONE_SIDE if one_side else 0) | (FLAG_SHADOW if shadow_enabled else 0)
              | (FLAG_FRESNEL if do_fresnel else 0) | (FLAG_TIR if tir else 0)
-             | (FLAG_SHADE_FLIPPED if shade_flipped else 0))
+             | (FLAG_SHADE_FLIPPED if shade_flipped else 0) | (FLAG_FILL if fill else 0))
     return hdr[:9] + (flags,) + hdr[10:]
 
 

@@ -11,9 +11,14 @@ weight, the specular term, the solid any-hit bit and each ring's (hit, u, v).
 
 Output: ``f`` [NF, N] f32 with NF = 23 + L·(3 + 3·nr) rows in the order of
 ``pallas_step.py:558-571``, and ``i`` [3, N] int32 (slot, kind, req_k).
-Lanes that are not ``alive``, lanes that miss, and the light rows of a
-light-bulb hit hold fills (t = INF_T, every other row 0), which the kernel
-writes without sweeping or shading them.
+With ``fill`` (the default), lanes that are not ``alive``, lanes that miss,
+and the light rows of a light-bulb hit hold fills (t = INF_T, every other
+row 0), which the kernel writes without sweeping or shading them: the
+rows a VJP saves (``render/trace.step_saving``) and the twin compares.
+Without, the kernel stores only what the consume kernels read: nothing on
+a lane that is not ``alive``, t alone on a miss, the base rows and the
+ints on a light-bulb hit; the rest of those lanes is left unwritten.  A
+forward step's probe and every glossy probe (``render/fused.py``) run so.
 
 ``step_probe`` launches the kernel on CUDA tensors (``launch``) and runs
 the twin ``step_probe_ref`` on CPU tensors.  Both read the packed scene
@@ -80,7 +85,8 @@ def step_probe_ref(buf, hdr, ro, rd, pix_angle=0.0, alive=None):
     """Plain PyTorch twin of the kernel over [N] tensors, Python loops over
     the primitive counts, on the tables of ``pack_scene``; see ``step_probe``.
     Every lane is computed; the kernel's fills are then applied with
-    ``torch.where``."""
+    ``torch.where``, whatever the header's ``FLAG_FILL``: CPU readers read
+    every lane."""
     cnt, sec = sections(buf, hdr)
     flags = hdr[9]
     one_side = bool(flags & FLAG_ONE_SIDE)
@@ -341,23 +347,31 @@ def step_probe_ref(buf, hdr, ro, rd, pix_angle=0.0, alive=None):
 
 def step_probe(scene, atlas, ro, rd, *, one_side=True, shadow_enabled=True,
                do_fresnel=True, tir=True, pix_angle=0.0, shade_flipped=True,
-               device=None, table=None, alive=None):
+               device=None, table=None, alive=None, fill=True):
     """Run the fused step probe on rays ro, rd [N, 3] f32 → (f [NF, N] f32,
     i [3, N] int32).  CUDA tensors launch the kernel; CPU tensors (with
     ``device="cpu"``) run ``step_probe_ref``.  ``scene`` lies on the rays'
     device; ``atlas`` is the TextureSet's SceneAtlas or None.  ``table``:
     the (buf, hdr) of ``pack_scene`` for this scene and atlas, packed once
     by the caller; packed here when None.  ``alive``: bool or uint8 [N], the
-    lanes whose rows the caller reads (None: every lane); the others, the
-    lanes that miss, and the light rows of a light-bulb hit hold fills
-    (t = INF_T, every other row 0)."""
+    lanes whose rows the caller reads (None: every lane).  ``fill`` sets
+    the header's ``FLAG_FILL``: with it, the other lanes, the lanes that
+    miss and the light rows of a light-bulb hit hold fills (t = INF_T,
+    every other row 0), for a caller that saves or compares every lane;
+    without, the kernel stores on those lanes only what the consume
+    kernels read (t on a live miss, the base rows and ints of a live
+    light-bulb hit) and leaves the rest unwritten.  The twin fills
+    either way.  ``step_probe.unfilled`` counts the calls made without
+    ``fill``, on either device (``render/graphs.py`` tallies them per
+    bounce step for the tracer)."""
     dev = resolve_device(device)
     check_rays("step_probe", dev, ro, rd)
     if scene.device != dev:
         raise ValueError(f"step_probe: scene is on {scene.device}, expected {dev}")
     buf, hdr = pack_scene(scene, atlas) if table is None else table
     hdr = set_flags(hdr, one_side=one_side, shadow_enabled=shadow_enabled,
-                    do_fresnel=do_fresnel, tir=tir, shade_flipped=shade_flipped)
+                    do_fresnel=do_fresnel, tir=tir, shade_flipped=shade_flipped, fill=fill)
+    step_probe.unfilled += not fill
     if dev.type == "cpu":
         check_mask("step_probe", dev, alive, ro.shape[0])
         return step_probe_ref(buf, hdr, ro, rd, pix_angle, alive)
@@ -371,7 +385,10 @@ _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctyp
 def launch(buf, hdr, ro, rd, pix_angle=0.0, alive=None):
     """Launch the kernel on tables packed by ``pack_scene`` and CUDA rays
     → (f [NF, N] f32, i [3, N] int32), on the current stream; ``alive`` as
-    in ``step_probe``.  Counts its launches in ``step_probe.launches``."""
+    in ``step_probe``, and ``hdr``'s ``FLAG_FILL`` as its ``fill``: set,
+    every element of f and i is written; clear, only the rows the consume
+    kernels read (the others hold what ``torch.empty`` gave).  Counts its
+    launches in ``step_probe.launches``."""
     dev = ro.device
     if dev.type != "cuda":
         raise ValueError(f"step_probe: no kernel for device {dev}")
@@ -391,6 +408,7 @@ def launch(buf, hdr, ro, rd, pix_angle=0.0, alive=None):
 
 
 step_probe.launches = 0
+step_probe.unfilled = 0
 
 
 class Rows(collections.abc.Mapping):

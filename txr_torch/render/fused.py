@@ -25,9 +25,12 @@ from txr_torch.render.shading import reflect, refract
 from txr_torch.scene.types import TYPE_POINT_LIGHT, TYPE_SPHERE
 
 
-def _probe(scene, textures, cfg, ro, rd, shade_flipped, table=None, alive=None):
+def _probe(scene, textures, cfg, ro, rd, shade_flipped, table=None, alive=None, fill=True):
     """The step probe's ``Rows`` (its output, read as ``unpack``'s dict);
-    ``alive`` [R] bool, the lanes the caller reads (None: every lane)."""
+    ``alive`` [R] bool, the lanes the caller reads (None: every lane);
+    ``fill``: whether the kernel stores fill rows on the lanes no consume
+    kernel reads (``step_probe``), which a caller that saves the rows
+    needs."""
     from txr_torch.render.trace import _pix_angle
 
     f, i = step_probe(
@@ -35,7 +38,7 @@ def _probe(scene, textures, cfg, ro, rd, shade_flipped, table=None, alive=None):
         one_side=cfg.plane_oneside, shadow_enabled=cfg.shadow_enabled,
         do_fresnel=cfg.do_fresnel, tir=cfg.total_internal_reflection,
         pix_angle=_pix_angle(cfg) or 0.0, shade_flipped=shade_flipped,
-        device=ro.device, table=table, alive=alive)
+        device=ro.device, table=table, alive=alive, fill=fill)
     return Rows(f, i, scene.counts)
 
 
@@ -248,23 +251,25 @@ def step_consume(scene, textures, cfg, st, pr, gpr, table):
 def glossy_probe(scene, textures, cfg, st, pr, table):
     """getReflectedColor's probe (rt.frag:787-802): the glossy lanes of the
     step (``glossy_rays``) probed along their reflected rays with the
-    unflipped hit normal, every other lane a fill → the probe's ``Rows``,
-    whose hits ``step_consume`` shades.  On the CPU the probe's twin works
-    through every lane and masks, as ``over_lanes`` does there."""
+    unflipped hit normal → the probe's ``Rows``, whose hits ``step_consume``
+    shades.  No VJP saves them, so on the card the kernel stores no fills:
+    the other lanes' rows are left unwritten.  On the CPU the probe's twin
+    works through every lane and masks, as ``over_lanes`` does there."""
     glossy, ro_g, rd_g = glossy_rays(scene, st, pr, table)
     return _probe(scene, textures, cfg, ro_g, rd_g, shade_flipped=False, table=table,
-                  alive=glossy)
+                  alive=glossy, fill=False)
 
 
 def fused_step_fwd(scene, textures, cfg, st, pr=None, table=None):
     """One bounce step: st (dict of per-ray state) → the next state.  ``pr``:
-    the step's probe (``_probe``), run here when None; ``table``: the packed
-    scene table (``pack_scene``) of this scene and atlas, packed here when
+    the step's probe (``_probe``), run here when None, storing no fills,
+    since nothing but the step reads its rows; ``table``: the packed scene
+    table (``pack_scene``) of this scene and atlas, packed here when
     None."""
     if table is None:
         table = pack_scene(scene, textures.atlas)
     if pr is None:
         pr = _probe(scene, textures, cfg, st["ro"], st["rd"], shade_flipped=True, table=table,
-                    alive=st["alive"])
+                    alive=st["alive"], fill=False)
     gpr = glossy_probe(scene, textures, cfg, st, pr, table) if cfg.refractive_glossy else None
     return step_consume(scene, textures, cfg, st, pr, gpr, table)

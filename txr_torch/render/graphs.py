@@ -49,6 +49,7 @@ import math
 import torch
 
 from txr_torch.kernels import add_launch_counts, lane_map, launch_counts
+from txr_torch.kernels import step_probe as sp
 from txr_torch.render import trace as tr
 from txr_torch.render.intersect import fixed_shapes
 from txr_torch.scene.types import unflatten_like
@@ -252,6 +253,7 @@ class TraceUnit:
                        else None)
         self.live = {}
         self.steps_run = []
+        self.unfilled = {}
         if train:
             self.stage = {C: _Blob(self._stage_fields(C), dev) for C in self.caps}
             self.g = {k: torch.zeros((R + 1,) + tuple(v.shape[1:]), device=dev)
@@ -283,6 +285,7 @@ class TraceUnit:
 
     def _step(self, C):
         f, st, R = self.frame, self.st, self.R
+        before = sp.step_probe.unfilled
         if C == R:
             sub = st
         else:
@@ -303,6 +306,9 @@ class TraceUnit:
         else:
             lane_map.scatter(new, lane, self.rows, live)
         self.live[C] = live
+        # the probe calls without fills that the step made (a capture's are
+        # the ones its replays launch)
+        self.unfilled[C] = sp.step_probe.unfilled - before
 
     def _tail(self):
         self.color = tr.shade_misses(self.frame.scene, self.frame.textures, self.st)
@@ -372,8 +378,10 @@ class TraceUnit:
         after the last live one changed nothing, so it has no VJP to run.
         With the tracer on, each step adds its live lanes, capacity and 1
         to the counters ``lanes``, ``rows`` and ``steps`` (and 1 to
-        ``compacted`` at a capacity below R): the count it reads one step
-        late is the lanes entering the step before."""
+        ``compacted`` at a capacity below R, and the probe launches without
+        fills that its capacity's step made when it ran or was captured to
+        ``unfilled``): the count it reads one step late is the lanes
+        entering the step before."""
         traced = profiling.enabled()
         with span("txr.head"):
             self.ro.copy_(ro)
@@ -401,6 +409,8 @@ class TraceUnit:
                 count("steps", 1)
                 if C < self.R:
                     count("compacted", 1)
+                if self.unfilled.get(C):
+                    count("unfilled", self.unfilled[C])
             if self.train:
                 saves.append((C, self.stage[C].buf.clone()))
         with span("txr.tail"):

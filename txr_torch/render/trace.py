@@ -468,8 +468,9 @@ def step_saving(scene, textures, cfg, st, table):
     runs the sweeps again)."""
     if cfg.fused == "off":
         return step_jnp(scene, textures, cfg, st, table=table), None
+    # saved on every lane in fixed shapes: the probe stores its fills
     pr = _probe(scene, textures, cfg, st["ro"], st["rd"], shade_flipped=True, table=table,
-                alive=st["alive"])
+                alive=st["alive"], fill=True)
     out = fused_step_fwd(scene, textures, cfg, st, pr=pr, table=table)
     return out, {k: pr[k] for k in _SAVE_KEYS}
 

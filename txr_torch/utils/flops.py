@@ -259,22 +259,34 @@ def step_probe_work(buf, hdr, ro, rd, alive, f, i):
     a nearest-hit sweep of each live lane, and for each live lane that hits
     a primitive other than a light bulb, one shadow sweep toward each light
     (when the table's flags enable shadows) from the hit point, as the
-    kernel offsets it; each live lane's ray read once and its rows written
-    once, and the table read once."""
-    from txr_torch.kernels.scene_table import FLAG_ONE_SIDE, FLAG_SHADOW, SLOT_ORDER, sections
+    kernel offsets it; each live lane's ray read once, and the table read
+    once.  Rows written: with the header's ``FLAG_FILL``, every row of each
+    live lane (the dead lanes' fills are not counted); without, what the
+    kernel stores (``step_probe.cu``, "Lanes"): t alone on a miss, the base
+    rows and ints on a light-bulb hit, every row on the other hits."""
+    from txr_torch.kernels.scene_table import (FLAG_FILL, FLAG_ONE_SIDE, FLAG_SHADOW, SLOT_ORDER,
+                                               sections)
     from txr_torch.kernels.step_probe import n_rows
 
     cnt, sec = sections(buf, hdr)
     lanes = _live(alive)
     o, d = _rows(ro, lanes).double(), _rows(rd, lanes).double()
     ops = _sweep_ops(cnt, sec, o, d)
-    nbytes = o.shape[0] * (24 + 4 * n_rows(cnt) + 12) + buf.numel() * 4
+    fl = _rows(f.T, lanes)
+    t = fl[:, 0].double()
+    hit = t < _INF_T
+    shaded = hit & (_rows(i[0], lanes) < sum(cnt[k] for k in SLOT_ORDER[:-1]))
+    row_bytes = 4 * n_rows(cnt) + 12
+    if hdr[9] & FLAG_FILL:
+        written = o.shape[0] * row_bytes
+    else:
+        n_hit, n_shaded = int(hit.sum()), int(shaded.sum())
+        written = ((o.shape[0] - n_hit) * 4 + (n_hit - n_shaded) * (4 * _BASE_ROWS + 12)
+                   + n_shaded * row_bytes)
+    nbytes = o.shape[0] * 24 + written + buf.numel() * 4
     L = cnt["lights_point"] + cnt["lights_direct"]
     if not (L and hdr[9] & FLAG_SHADOW):
         return ops, nbytes
-    fl = _rows(f.T, lanes)
-    t = fl[:, 0].double()
-    shaded = (t < _INF_T) & (_rows(i[0], lanes) < sum(cnt[k] for k in SLOT_ORDER[:-1]))
     t, o, d, n = t[shaded], o[shaded], d[shaded], fl[shaded, 1:4].double()
     solid = fl[shaded, _BASE_ROWS:].reshape(-1, L, 3 + 3 * cnt["rings"])[:, :, 2] > 0.5
     so = o + d * t[:, None] + n * ((9e-3 * t + 35.0) / 35e3)[:, None]
@@ -478,7 +490,9 @@ def priced_launches():
         f, i = probe(scene, atlas, ro, rd, one_side=one_side, shadow_enabled=shadow_enabled,
                      table=table, alive=alive, **kw)
         buf, hdr = pack_scene(scene, atlas) if table is None else table
-        hdr = set_flags(hdr, one_side=one_side, shadow_enabled=shadow_enabled)
+        # priced with every live lane's rows, whatever the call's ``fill``,
+        # as rtbench/work/prices.py prices a probe
+        hdr = set_flags(hdr, one_side=one_side, shadow_enabled=shadow_enabled, fill=True)
         note("step_probe", ro.shape[0], alive, step_probe_work(buf, hdr, ro, rd, alive, f, i))
         return f, i
 

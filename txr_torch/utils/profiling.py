@@ -46,7 +46,10 @@ Spans (``PERF.md`` §3 names the metric that reads each):
 Counters, added per bounce step (``graphs.TraceUnit.run``): ``lanes``,
 the live lanes entering it; ``rows``, its capacity, the rows it gathers,
 steps and scatters; ``steps``, 1; ``compacted``, 1 at a capacity below
-the unit's rays (the lane map's kernels ran); and ``captures``, 1 per
+the unit's rays (the lane map's kernels ran); ``unfilled``, its probe
+launches that stored no fill rows (``kernels.step_probe``'s ``fill``
+clear, tallied as the step ran or was captured: 2 a forward step, 1
+without the glossy pass, 1 a train step); and ``captures``, 1 per
 capture.
 ``100 · Σ lanes / Σ rows`` is the share of stepped rows that were live.
 Counters of the pose (``apps.demo.update_scene``), which belong to the
