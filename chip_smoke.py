@@ -28,6 +28,15 @@ Phases, one line each:
                on the shadow rays of the 1080p primary hits toward both
                lights plus 8192 random rays, on every ray and with the need
                mask of step 0's act lanes
+  3a. balls    the same kernels on the SPD balls table (rtbench's
+               spd-balls-1080p: 7,381 spheres), which each sweeps in tiles
+               (``balls_phase``): the probe on its 1080p primary rays, both
+               variants, and again without fills into NaN rows, and on the
+               first compacted step of a render_jit frame, each launch
+               counted from zero around it, vs the twin; nearest-hit on
+               the primary rays and shadow-sweep on their shadow rays, with
+               and without the need mask, vs the twins; the probe's time
+               and bound, a row ``step_probe_tiled`` of the last line
   4. gate      96×54 demo render on the probe route vs the f64 oracle image
                (txr/ref/gate_oracle.npz), golden criterion
   5. gate-off  the same render on the eager route (fused="off"), through the
@@ -203,6 +212,10 @@ TX_W, TX_H, TX_STEPS = 48, 27, 4
 DIST_REPS = 3
 RING_WORLDS = (2, 4)
 LIVE_SECONDS = 8.0
+# phase balls: the configuration, the twins' chunk of lanes, timed launches
+BALLS = "spd-balls-1080p"
+BALLS_CHUNK = 1 << 18
+BALLS_REPS = 5
 # phase train jit: rounds of an eager and a captured step, in turns (the
 # first of a round alternates); the Adam rate of its steps; a gradient's
 # tolerance against the eager step's, relative to its norm; the fits'
@@ -500,7 +513,7 @@ def probe_into(buf, hdr, ro, rd, pix, alive, f, i):
     build.run("step_probe", "txr_step_probe", sp._ARGS, ro.device, hdr, buf.data_ptr(),
               float(pix), ro.data_ptr(), rd.data_ptr(),
               None if mask is None else mask.data_ptr(), f.data_ptr(), i.data_ptr(),
-              ro.shape[0])
+              ro.shape[0], 0, None)
 
 
 NAN_BITS = 0x7FC00000     # NaN's bits, set in the int rows before a launch
@@ -1039,6 +1052,190 @@ def lane_map_phase(scene, textures, cfg, dev):
     if not kept:
         fail(f"a render_jit frame at {cfg.width}x{cfg.height} ran no compacted step")
     return out
+
+
+def in_chunks(fn, n, *lanes, chunk=BALLS_CHUNK):
+    """``fn`` of per-lane inputs (lanes on their first axis, or None) in
+    chunks of ``chunk`` lanes, its outputs joined along their lane axis
+    (the last: the probe's rows, a sweep's [N] outputs; None kept): the
+    twins of the balls phase at 1080p, their [N, 256] blocks held to a
+    chunk's size.  Each lane's result is its own, so the chunks give the
+    whole call's."""
+    import torch
+
+    parts = [fn(*(None if x is None else x[a:a + chunk].contiguous() for x in lanes))
+             for a in range(0, n, chunk)]
+    return tuple(None if p[0] is None else torch.cat(p, dim=-1) for p in zip(*parts))
+
+
+def balls_phase(dev):
+    """Phase 3a: the SPD ``balls`` table (``rtbench/configs/spd-balls-1080p.json``:
+    7,381 spheres, a floor, 3 point lights; its slot records far larger
+    than a block's shared memory), which every kernel sweeps in tiles
+    (``csrc/txr_common.cuh: plan_stage``): the step probe on the
+    configuration's 1080p primary rays, both shading variants, and on the
+    first compacted step of a render_jit frame of it (its pieces run
+    eagerly, ``uncaptured``, so the step's rays and mask are kept), each
+    launch counted from zero around it (one ``step_probe`` launch, more
+    than one tile a sweep), against its twin (``compare_probe``); each
+    primary-ray launch again without fills into rows set to NaN
+    (``check_unfilled``); the eager route's nearest-hit kernel on the
+    primary rays and the shadow-sweep kernel on their shadow rays toward
+    the lights, with and without the need mask, against their twins
+    (``compare_nearest``, ``compare_shadow``); then the probe on the
+    primary rays without fills, as the path runs it, timed through its
+    wrapper (CUDA events) and alone (device time), beside its twin and its
+    least time by ``utils/flops.py`` → the ``kernels`` row
+    ``step_probe_tiled``; fails on a disagreement."""
+    import torch
+
+    from rtbench import scenedata, system
+    from txr_torch.apps.profile_frame import uncaptured
+    from txr_torch.kernels import launch_counts, reset_launch_counts
+    from txr_torch.kernels import nearest_hit as nh
+    from txr_torch.kernels import shadow_sweep as ss
+    from txr_torch.kernels import step_probe as sp
+    from txr_torch.kernels.scene_table import pack_scene, set_flags
+    from txr_torch.render import fused as rfused
+    from txr_torch.render.raygen import primary_rays
+    from txr_torch.render.render import clear_jit_cache, render_jit
+    from txr_torch.render.trace import _pix_angle
+    from txr_torch.utils import flops
+
+    cfg_file = scenedata.load_config(BALLS)
+    scene, _ = system.scene(cfg_file, dev)
+    textures = system.textures(cfg_file, {})
+    cfg = system.render_config(cfg_file)
+    ncount = scene.counts
+    L = ncount["lights_point"] + ncount["lights_direct"]
+    table = pack_scene(scene, textures.atlas)
+    buf, hdr0 = table
+    pix = _pix_angle(cfg) or 0.0
+    ro, rd = primary_rays(scene.camera, cfg.width, cfg.height)
+    n = ro.shape[0]
+    err = 0.0
+
+    def counted(fn):
+        # the launch's own counts: the launches from zero around it, its tiles
+        reset_launch_counts()
+        tiles = sp.step_probe.tiles
+        out = fn()
+        torch.cuda.synchronize()
+        c = launch_counts()
+        got = dict(launches=c.get("step_probe", 0), tiles=sp.step_probe.tiles - tiles)
+        if got["launches"] != 1 or got["tiles"] < 2:
+            fail(f"balls: the probe launch was not one launch swept in tiles: {got}, {c}")
+        return out, got
+
+    def twin(hdr, ro_, rd_, alive):
+        return in_chunks(lambda o, d, a: sp.step_probe_ref(buf, hdr, o, d, pix, a),
+                         ro_.shape[0], ro_, rd_, alive)
+
+    for flipped in (True, False):
+        hdr = set_flags(hdr0, shade_flipped=flipped)
+        (fk, ik), got = counted(lambda: sp.launch(buf, hdr, ro, rd, pix))
+        fr, ir = twin(hdr, ro, rd, None)
+        ok, st = compare_probe(fk, ik, fr, ir, ncount)
+        err = max(err, st["max_abs_err"])
+        log(f"phase balls probe ({n} primary rays, shade_flipped={flipped}, {got['tiles']} "
+            f"tiles): " + json.dumps(st) + (" PASS" if ok else " FAIL"))
+        if not ok:
+            fail("balls: the tiled step_probe kernel disagrees with its twin")
+        fn, in_ = probe_over_nan(buf, hdr, ro, rd, pix, None)
+        ok, st, _ = check_unfilled(fn, in_, fk, ik, None, ncount)
+        log(f"phase balls probe (the same, without fills, into rows set to NaN): "
+            + json.dumps(st) + (" PASS" if ok else " FAIL"))
+        if not ok:
+            fail("balls: the tiled step_probe kernel without fills stores other rows than a "
+                 "reader reads")
+        del fk, ik, fr, ir, fn, in_
+
+    # the first compacted step of a render_jit frame, its rays and mask kept
+    kept, probe = [], rfused._probe
+
+    def keep(scene, textures, cfg, ro, rd, shade_flipped, table=None, alive=None, fill=True):
+        if alive is not None and ro.shape[0] < n and shade_flipped and not kept:
+            kept.append((set_flags(hdr0, one_side=cfg.plane_oneside,
+                                   shadow_enabled=cfg.shadow_enabled, do_fresnel=cfg.do_fresnel,
+                                   tir=cfg.total_internal_reflection,
+                                   shade_flipped=shade_flipped),
+                         ro.clone(), rd.clone(), alive.clone()))
+        return probe(scene, textures, cfg, ro, rd, shade_flipped, table, alive, fill)
+
+    clear_jit_cache()
+    try:
+        with uncaptured(), torch.no_grad():
+            render_jit(scene, textures, cfg, device=dev)    # the warm-up steps every capacity
+            rfused._probe = keep
+            render_jit(scene, textures, cfg, device=dev)
+    finally:
+        rfused._probe = probe
+        clear_jit_cache()
+    if not kept:
+        fail("balls: a render_jit frame ran no compacted step")
+    hdr, ro_c, rd_c, alive_c = kept[0]
+    (fk, ik), got = counted(lambda: sp.launch(buf, hdr, ro_c, rd_c, pix, alive_c))
+    fr, ir = twin(hdr, ro_c, rd_c, alive_c)
+    ok, st = compare_probe(fk, ik, fr, ir, ncount)
+    err = max(err, st["max_abs_err"])
+    log(f"phase balls probe (a compacted step of the render_jit frame: {int(alive_c.sum())} live "
+        f"of {ro_c.shape[0]} lanes, {got['tiles']} tiles): " + json.dumps(st)
+        + (" PASS" if ok else " FAIL"))
+    if not ok:
+        fail("balls: the tiled step_probe kernel disagrees with its twin on a compacted step")
+    del fk, ik, fr, ir, kept
+
+    # the eager route's kernels: primary rays, and their shadow rays
+    tk, sk = nh.launch(buf, hdr0, ro, rd)
+    torch.cuda.synchronize()
+    tr, sr = in_chunks(lambda o, d: nh.nearest_hit_ref(buf, hdr0, o, d), n, ro, rd)
+    ok, st = compare_nearest(tk, sk, tr, sr)
+    log(f"phase balls nearest_hit ({n} primary rays): " + json.dumps(st)
+        + (" PASS" if ok else " FAIL"))
+    if not ok:
+        fail("balls: the tiled nearest_hit kernel disagrees with its twin")
+    del tk, sk, tr, sr
+    so, sd, sdist, sneed = shadow_rays(scene, textures, ro, rd, table, pix)
+    for need in (None, sneed):
+        k = ss.launch(buf, hdr0, so, sd, sdist, need)
+        torch.cuda.synchronize()
+        r = in_chunks(lambda o, d, t, m: ss.shadow_sweep_ref(buf, hdr0, o, d, t, m),
+                      so.shape[0], so, sd, sdist, need)
+        ok, st = compare_shadow(k, r)
+        what = "every ray" if need is None else f"need mask: {int(need.sum())} rays"
+        log(f"phase balls shadow_sweep ({so.shape[0]} rays: {L} lights x {n} primary rays; "
+            f"{what}): " + json.dumps(st) + (" PASS" if ok else " FAIL"))
+        if not ok:
+            fail("balls: the tiled shadow_sweep kernel disagrees with its twin")
+        del k, r
+    del so, sd, sdist, sneed
+
+    # the probe on the primary rays, without fills as the path runs it
+    hdr_n = unfilled(hdr0)
+    run = lambda: sp.launch(buf, hdr_n, ro, rd, pix)
+    fk, ik = run()
+    needed = flops.step_probe_work(buf, hdr_n, ro, rd, None, fk, ik)
+    full = (flops.step_flops(ncount, L) * n,
+            n * (24 + 4 * sp.n_rows(ncount) + 12) + buf.numel() * 4)
+    del fk, ik
+    ms = cuda_ms(run, BALLS_REPS)
+    dms = device_ms(run, "step_probe_kernel", BALLS_REPS)
+    base = lambda: twin(hdr0, ro, rd, None)
+    base()
+    plain_ms = cuda_ms(base, 1)
+    bound_ms, bound_by = flops.bound_ms(*needed), flops.bound_by(*needed)
+    full_ms, full_by = flops.bound_ms(*full), flops.bound_by(*full)
+    row = dict(name="step_probe_tiled", route="cuda", source="txr_torch/kernels/csrc/step_probe.cu",
+               replaces="txr/kernels/pallas_step.py:652", table=BALLS, launches=1,
+               tiles=got["tiles"], max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bound_full_ms=full_ms,
+               bound_full_by=full_by, share=bound_ms / dms)
+    log(f"kernel step_probe_tiled: {ms:.3f} ms per launch at {n} primary rays of {BALLS} "
+        f"({got['tiles']} tiles a sweep), through its wrapper by CUDA events (device "
+        f"{dms:.3f} ms, twin {plain_ms:.1f} ms), bound {bound_ms:.3f} ms by {bound_by} "
+        f"({needed[0] / 1e9:.1f} GFLOP, {needed[1] / 1e6:.0f} MB), {full_ms:.3f} ms by {full_by} "
+        f"at full work")
+    return row
 
 
 def without(group):
@@ -2077,6 +2274,7 @@ def main():
             fail("shadow_sweep kernel disagrees with its twin")
         del k
     del so_all, sd_all, sdist_all, need_all
+    balls_row = balls_phase(dev)
 
     # 4-5. gate, both routes -----------------------------------------------------
     gscene, _ = build_scene(GATE_W, GATE_H)
@@ -2978,6 +3176,7 @@ def main():
                          ms=lmr["ms"], plain_ms=lmr["plain_ms"], bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None, bound_full_ms=full_ms,
                          bound_full_by=full_by, **extra))
+    rows.append(balls_row)
 
     log(f"phase torus cull (every line the bounds above counted: the frame's bounce steps, "
         f"their shading probes' shadow rays, the primary rays and step 0's eager shadow rays): "

@@ -1,0 +1,219 @@
+"""A scene table larger than a block's shared memory: the kernels sweep it in
+tiles of its slot records (``csrc/txr_common.cuh``: ``plan_stage``,
+``Span``), in slot order with the whole sweep's strict ``<``.
+
+On the CPU (tier 1):
+
+* the twins' sweeps test spheres in blocks (``scene_table.SPHERE_BLOCK``):
+  the nearest hit and the occlusion bit of a block sweep are those of one
+  sphere at a time, bit for bit, ties to the first slot within a block and
+  across blocks, hollow spheres from inside;
+* the launchers' ctypes argument lists are their libraries' C signatures,
+  argument for argument (the tile arguments they gained).
+
+On the card (marker ``card``; no JAX, so the file runs alone there:
+``python -m pytest --noconftest -m card tests/test_torch_tiles.py``):
+
+* the demo's table, which fits a block, is staged whole (1 tile a launch);
+* with tiles forced smaller than the demo's table (smaller than a record,
+  a few records, one tile of it all), the step probe writes the whole-table
+  launch's rows bit for bit, every element, over rows set to NaN
+  beforehand, with and without fill rows, both shading variants, with a
+  lane mask; the nearest-hit and shadow-sweep kernels their outputs.
+"""
+
+import ctypes
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from txr_torch.kernels import primitives as prim
+from txr_torch.kernels import scene_table
+from txr_torch.kernels import step_probe as sp
+from txr_torch.kernels.primitives import INF_T
+from txr_torch.scene.factories import SceneBuilder
+
+# one intra-op thread: parallel test workers share the cores
+torch.set_num_threads(1)
+
+
+def _spheres_scene(n, seed=0):
+    """n spheres in a 10-unit cube, some hollow, with copies at block
+    edges (exact ties), a box and a point light."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder(camera_pos=(0.0, 0.0, -20.0))
+    b.add_light_point((0.0, 30.0, 0.0), (1.0, 1.0, 1.0), 1.0)
+    m = b.material((0.5, 0.5, 0.5))
+    pos = rng.uniform(-5.0, 5.0, (n, 3))
+    rad = rng.uniform(0.05, 0.6, n)
+    B = scene_table.SPHERE_BLOCK
+    for i, j in ((11, 10), (B, B - 1), (B + 5, 3), (2 * B + 1, B)):
+        if i < n:
+            pos[i], rad[i] = pos[j], rad[j]
+    for k in range(n):
+        b.add_sphere(tuple(pos[k]), float(rad[k]), m, hollow=bool(k % 7 == 0))
+    b.add_box((0.0, -6.0, 0.0), (8.0, 0.1, 8.0), m)
+    return b.build()
+
+
+def _rays(n, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    ro = (torch.rand(n, 3, generator=g) - 0.5) * 14.0
+    rd = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=-1)
+    return ro.contiguous(), rd.contiguous()
+
+
+def test_block_sweeps_are_the_slot_by_slot_sweeps():
+    scene = _spheres_scene(2 * scene_table.SPHERE_BLOCK + 40)
+    buf, hdr = scene_table.pack_scene(scene, None)
+    cnt, sec = scene_table.sections(buf, hdr)
+    ro, rd = _rays(3000)
+    o3, d3 = ro.unbind(-1), rd.unbind(-1)
+    # one sphere at a time, as the sweep read before it took blocks
+    SP = sec["spheres"]
+    tmin = torch.full((ro.shape[0],), INF_T)
+    slot = torch.zeros(ro.shape[0], dtype=torch.int64)
+    solid = torch.zeros(ro.shape[0], dtype=torch.bool)
+    dist = torch.full((ro.shape[0],), 6.0)
+    for i in range(cnt["spheres"]):
+        t, hit = prim._sphere_test(SP[i, 0], SP[i, 1], SP[i, 2], SP[i, 3], SP[i, 4] != 0, o3, d3)
+        upd = hit & (t < tmin)
+        tmin, slot = torch.where(upd, t, tmin), torch.where(upd, i, slot)
+        t, hit = prim._sphere_test(SP[i, 0], SP[i, 1], SP[i, 2], SP[i, 3], None, o3, d3)
+        solid |= hit & (t < dist)
+    # the box and the light's bulb are swept after the spheres (slot order)
+    rest = list(scene_table.slot_tests(cnt, sec, o3, d3, True))[cnt["spheres"]:]
+    for s, (t, hit) in enumerate(rest, cnt["spheres"]):
+        upd = hit & (t < tmin)
+        tmin, slot = torch.where(upd, t, tmin), torch.where(upd, s, slot)
+    got_t, got_slot = scene_table.sweep_ref(cnt, sec, o3, d3, True)
+    assert torch.equal(got_t.view(torch.int32), tmin.view(torch.int32))
+    assert torch.equal(got_slot, slot)
+    # the copies tie exactly: the first of each pair wins wherever both are hit
+    assert not torch.isin(got_slot, torch.tensor([11, scene_table.SPHERE_BLOCK])).any()
+    assert int((got_slot < cnt["spheres"]).sum()) > 100
+    box_t, box_hit = prim._box_test(sec["boxes"][:, 0:3], sec["boxes"][:, 3:7],
+                                    sec["boxes"][:, 7:10], 0, o3, d3)
+    want_solid = solid | (box_hit & (box_t < dist))
+    got_solid, _ = scene_table.occlusion_ref(cnt, sec, o3, d3, dist, True)
+    assert torch.equal(got_solid, torch.where(want_solid, 1.0, 0.0))
+    assert 0 < int(want_solid.sum()) < ro.shape[0]
+
+
+_CTYPES = {"float": ctypes.c_float, "int": ctypes.c_int, "long long": ctypes.c_longlong}
+
+
+@pytest.mark.parametrize("name", ["step_probe", "nearest_hit", "shadow_sweep"])
+def test_launcher_args_are_the_c_signature(name):
+    import importlib
+
+    mod = importlib.import_module(f"txr_torch.kernels.{name}")
+    path = os.path.join(os.path.dirname(mod.__file__), "csrc", f"{name}.cu")
+    with open(path) as f:
+        src = f.read()
+    (params,) = re.findall(rf'extern "C" int txr_{name}\(([^)]*)\)', src)
+    want = []
+    for p in params.split(","):
+        p = " ".join(p.split())
+        if "*" in p:
+            want.append(ctypes.c_void_p)
+        else:
+            want.append(_CTYPES[p.rsplit(" ", 1)[0].replace("const ", "")])
+    assert mod._ARGS == want
+
+
+# ---- on the card --------------------------------------------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+NAN_BITS = 0x7FC00000
+
+
+def _probe_into_nan(buf, hdr, ro, rd, pix, alive, tile):
+    """The probe launched with ``tile`` (0: as planned) into rows set to NaN
+    beforehand → (f, i, tiles a sweep)."""
+    from txr_torch.kernels import build
+
+    N = ro.shape[0]
+    f = torch.full((sp.n_rows(scene_table.counts_of(hdr)), N), float("nan"), device=ro.device)
+    i = torch.full((3, N), NAN_BITS, dtype=torch.int32, device=ro.device)
+    tiles = ctypes.c_int(0)
+    build.run("step_probe", "txr_step_probe", sp._ARGS, ro.device, hdr, buf.data_ptr(),
+              float(pix), ro.data_ptr(), rd.data_ptr(),
+              None if alive is None else alive.view(torch.uint8).data_ptr(), f.data_ptr(),
+              i.data_ptr(), N, int(tile), ctypes.addressof(tiles))
+    return f, i, tiles.value
+
+
+def _demo_rays(card, n_random=1 << 16):
+    """The demo's primary rays at 480×270 at t = 60.5 s, rays from 2 away
+    at its point light's bulb, and random rays; a lane mask of about 70 %."""
+    from txr_torch.apps import demo as tdemo
+    from txr_torch.render.raygen import primary_rays
+    from txr_torch.render.texture import with_mips
+
+    scene, handles = tdemo.build_scene(480, 270)
+    posed = tdemo.update_scene(scene.to(card), handles, 0.0, 60.5)
+    tex = with_mips(tdemo.demo_textures().to(card))
+    buf, hdr = scene_table.pack_scene(posed, tex.atlas)
+    _, sec = scene_table.sections(buf, hdr)
+    ro, rd = primary_rays(posed.camera, 480, 270, 1)
+    g = torch.Generator(device=card).manual_seed(3)
+    bulb = torch.tensor(sec["lights_point"][0, 0:3].copy(), device=card)
+    at = bulb + torch.nn.functional.normalize(
+        torch.randn(4096, 3, generator=g, device=card), dim=-1) * 2.0
+    o = (torch.rand(n_random, 3, generator=g, device=card) - 0.5) * 30.0
+    d = torch.nn.functional.normalize(torch.randn(n_random, 3, generator=g, device=card), dim=-1)
+    ro = torch.cat([ro, at, o]).contiguous()
+    rd = torch.cat([rd, torch.nn.functional.normalize(bulb - at, dim=-1), d]).contiguous()
+    alive = (torch.rand(ro.shape[0], generator=g, device=card) < 0.7).contiguous()
+    return buf, hdr, ro, rd, alive
+
+
+def _bits(v):
+    return v.contiguous().view(torch.int32)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("fill", [True, False])
+@pytest.mark.parametrize("shade_flipped", [True, False])
+def test_tiled_probe_is_the_whole_tables(card, fill, shade_flipped):
+    buf, hdr, ro, rd, alive = _demo_rays(card)
+    hdr = scene_table.set_flags(hdr, shade_flipped=shade_flipped, fill=fill)
+    pix = 1.0 / 1080.0
+    f0, i0, n0 = _probe_into_nan(buf, hdr, ro, rd, pix, alive, 0)
+    assert n0 == 1                        # the demo's table fits a block
+    hit = alive & (f0[0] < 1e30)
+    assert int(hit.sum()) > 10000 and int((alive & ~hit).sum()) > 10000
+    n_rec = hdr[17]
+    for tile in (5, 16, 64, n_rec):
+        f, i, n = _probe_into_nan(buf, hdr, ro, rd, pix, alive, tile)
+        assert n == -(-n_rec // tile)
+        assert torch.equal(_bits(f), _bits(f0)), tile
+        assert torch.equal(i, i0), tile
+
+
+@pytest.mark.card
+def test_tiled_eager_kernels_are_the_whole_tables(card):
+    from txr_torch.kernels import nearest_hit as nh
+    from txr_torch.kernels import shadow_sweep as ss
+
+    buf, hdr, ro, rd, alive = _demo_rays(card)
+    dist = torch.rand(ro.shape[0], device=card) * 40.0
+    t0, s0 = nh.launch(buf, hdr, ro, rd, alive)
+    k0 = ss.launch(buf, hdr, ro, rd, dist, alive)
+    assert int((t0 < 1e30).sum()) > 10000 and int((k0[0] > 0).sum()) > 1000
+    for tile in (5, 16, 64, hdr[17]):
+        t, s = nh.launch(buf, hdr, ro, rd, alive, tile=tile)
+        assert torch.equal(_bits(t), _bits(t0)) and torch.equal(s, s0), tile
+        k = ss.launch(buf, hdr, ro, rd, dist, alive, tile=tile)
+        assert torch.equal(k[0], k0[0]), tile
+        assert torch.equal(k[1], k0[1]) and torch.equal(_bits(k[2]), _bits(k0[2])), tile

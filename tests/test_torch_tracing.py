@@ -236,3 +236,19 @@ def test_compacted_counter_counts_the_steps_below_capacity(demo, tracer, monkeyp
     assert len(units) == 2 and len(below) >= 2, [u.steps_run for u in units]
     assert c["compacted"] == [1] * len(below)
     assert len(c["rows"]) == sum(len(u.steps_run) for u in units)
+
+
+def test_tiles_and_pairs_counters(demo, tracer):
+    """Each step adds its live lanes entering times the scene's slots to
+    ``pairs``, and the table tiles its probe launches staged to ``tiles``:
+    on the CPU, whose twin sweeps the table whole, 1 a probe call, as many
+    as ``unfilled`` counts in a forward frame."""
+    scene = demo[0]
+    _frame(demo, CFG)
+    (rec,) = tracer.records()
+    c = rec["counters"]
+    slots = sum(scene.counts[k] for k in ("planes", "spheres", "surfaces", "boxes", "toruses",
+                                          "rings", "lights_point"))
+    assert slots == 13
+    assert c["pairs"] == [n * slots for n in c["lanes"]]
+    assert c["tiles"] == c["unfilled"] and sum(c["tiles"]) == 2 * sum(c["steps"])

@@ -27,7 +27,12 @@
 //    slower on the demo frame's bounce steps, whose crossing rays lie close
 //    together (PERF.md, findings on the nearest-hit redesign).
 // The table is staged in shared memory once per block, so every primitive
-// parameter is a broadcast read.  Built with -fmad=false so it rounds as
+// parameter is a broadcast read; a table too large for a block's room at full
+// occupancy is swept in tiles of its slot records that every thread of the
+// block stages in turn, in slot order with the same strict '<'
+// (txr_common.cuh plan_stage, nearest_span): nearest_hit_kernel<true>.  A
+// type's loop unrolls only up to UNROLL_MAX records, so a topology of
+// thousands of spheres still builds.  Built with -fmad=false so it rounds as
 // its twin does.
 
 #include <cuda_runtime.h>
@@ -58,6 +63,9 @@ constexpr int OPL = 0, OSP = OPL + RPL * NPL, OSU = OSP + RSP * NSP, OBX = OSU +
 constexpr int SSP = NPL, SSU = SSP + NSP, SBX = SSU + NSU, STO = SBX + NBX, SRI = STO + NTO,
               SLP = SRI + NRI;
 constexpr int kWrongTable = -1;  // the launcher's code for a table of another topology
+// a loop over n records unrolls whole up to UNROLL_MAX of them
+constexpr int UNROLL_MAX = 64;
+__host__ __device__ constexpr int unroll(int n) { return n >= 1 && n <= UNROLL_MAX ? n : 1; }
 
 // calcInter over every slot in reference order with strict '<'.  A miss
 // leaves tmin = INF_T, slot 0.
@@ -66,40 +74,43 @@ __device__ __forceinline__ void sweep(const float* sm, f3 o, f3 d, bool one_side
   tmin = INF_T;
   slot = 0;
   float t;
-#pragma unroll
+#pragma unroll unroll(NPL)
   for (int k = 0; k < NPL; ++k)
     if (plane_test(sm + OPL + RPL * k, o, d, one_side, t) && t < tmin) tmin = t, slot = k;
-#pragma unroll
+#pragma unroll unroll(NSP)
   for (int k = 0; k < NSP; ++k) {
     const float* S = sm + OSP + RSP * k;
     if (sphere_test(S, S[3], S[4] != 0.0f, o, d, t) && t < tmin) tmin = t, slot = SSP + k;
   }
-#pragma unroll
+#pragma unroll unroll(NSU)
   for (int k = 0; k < NSU; ++k)
     if (surface_test(sm + OSU + RSU * k, o, d, t) && t < tmin) tmin = t, slot = SSU + k;
-#pragma unroll
+#pragma unroll unroll(NBX)
   for (int k = 0; k < NBX; ++k)
     if (box_test(sm + OBX + RBX * k, o, d, t) && t < tmin) tmin = t, slot = SBX + k;
-#pragma unroll
+#pragma unroll unroll(NTO)
   for (int k = 0; k < NTO; ++k)
     if (torus_test(sm + OTO + RTO * k, o, d, t) && t < tmin) tmin = t, slot = STO + k;
-#pragma unroll
+#pragma unroll unroll(NRI)
   for (int k = 0; k < NRI; ++k) {
     float x, pp;
     if (ring_test(sm + ORI + RRI * k, o, d, t, x, pp) && t < tmin) tmin = t, slot = SRI + k;
   }
-#pragma unroll
+#pragma unroll unroll(NLP)
   for (int k = 0; k < NLP; ++k) {
     const float* L = sm + OLP + RLP * k;
     if (sphere_test(L, L[3], false, o, d, t) && t < tmin) tmin = t, slot = SLP + k;
   }
 }
 
+// kTiled: the table is swept in tiles of `tile` floats (txr_common.cuh
+// Span, reading m); otherwise staged whole, and `tile` is unused.
+template <bool kTiled>
 __global__ void __launch_bounds__(kThreads)
-    nearest_hit_kernel(const float* __restrict__ buf, const float* __restrict__ ro,
-                       const float* __restrict__ rd, const unsigned char* __restrict__ alive,
-                       float* __restrict__ tout, int* __restrict__ sout, long long n,
-                       bool one_side) {
+    nearest_hit_kernel(Meta m, const float* __restrict__ buf, int tile,
+                       const float* __restrict__ ro, const float* __restrict__ rd,
+                       const unsigned char* __restrict__ alive, float* __restrict__ tout,
+                       int* __restrict__ sout, long long n, bool one_side) {
   extern __shared__ float sm[];
   __shared__ int s_live[kThreads], s_wc[kWarps];
   const int tid = threadIdx.x;
@@ -112,15 +123,30 @@ __global__ void __launch_bounds__(kThreads)
     sout[own] = 0;
   }
   if (n_live == 0) return;  // the whole block
-  for (int k = tid; k < NTAB; k += kThreads) sm[k] = buf[k];
-  __syncthreads();
-  if (tid >= n_live) return;  // past the live count: retire
-  const long long ray = base + s_live[tid];
-  const f3 o = {ro[3 * ray], ro[3 * ray + 1], ro[3 * ray + 2]};
-  const f3 d = {rd[3 * ray], rd[3 * ray + 1], rd[3 * ray + 2]};
-  float tmin;
-  int slot;
-  sweep(sm, o, d, one_side, tmin, slot);
+  const bool mine = tid < n_live;
+  const long long ray = base + (mine ? s_live[tid] : 0);
+  f3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
+  float tmin = INF_T;
+  int slot = 0;
+  if (!kTiled) {
+    for (int k = tid; k < NTAB; k += kThreads) sm[k] = buf[k];
+    __syncthreads();
+    if (!mine) return;  // past the live count: retire
+    o = {ro[3 * ray], ro[3 * ray + 1], ro[3 * ray + 2]};
+    d = {rd[3 * ray], rd[3 * ray + 1], rd[3 * ray + 2]};
+    sweep(sm, o, d, one_side, tmin, slot);
+  } else {
+    if (mine) {
+      o = {ro[3 * ray], ro[3 * ray + 1], ro[3 * ray + 2]};
+      d = {rd[3 * ray], rd[3 * ray + 1], rd[3 * ray + 2]};
+    }
+    for (int a = 0; a < NTAB; a += tile) {
+      const int b = min(a + tile, NTAB);
+      stage_tile(m, buf, sm, a, b);
+      if (mine) nearest_span(m, tile_span(m, a, b), sm, o, d, tmin, slot);
+    }
+    if (!mine) return;
+  }
   tout[ray] = tmin;
   sout[ray] = slot;
 }
@@ -129,22 +155,32 @@ __global__ void __launch_bounds__(kThreads)
 
 // hdr: the table header, read on the host; it must hold this library's
 // counts and offsets, else kWrongTable and no launch.  alive: uint8 [n] or
-// null for every ray; tout [n] f32, sout [n] int32.  Returns
-// cudaGetLastError() after the launch; the caller raises on non-zero.
+// null for every ray; tout [n] f32, sout [n] int32; tile as txr_step_probe's.
+// Returns cudaGetLastError() after the launch; the caller raises on non-zero.
 extern "C" int txr_nearest_hit(const int* hdr, const float* buf, const float* ro, const float* rd,
                                const unsigned char* alive, float* tout, int* sout, long long n,
-                               void* stream) {
+                               int tile, void* stream) {
   const int counts[7] = {NPL, NSP, NSU, NBX, NTO, NRI, NLP};
   const int offsets[8] = {OPL, OSP, OSU, OBX, OTO, ORI, OLP, NTAB};
   for (int j = 0; j < 7; ++j)
     if (hdr[j] != counts[j]) return kWrongTable;
   for (int j = 0; j < 8; ++j)
     if (hdr[10 + j] != offsets[j]) return kWrongTable;
+  const Meta m = make_meta(hdr, 0.0f);
+  Stage st;
+  if (int e = plan_stage(m, nearest_hit_kernel<false>, nearest_hit_kernel<true>, kThreads, NTAB,
+                         tile, st))
+    return e;
   if (n <= 0) return 0;
-  const size_t smem = (size_t)NTAB * sizeof(float);
-  if (int e = allow_smem(nearest_hit_kernel, smem)) return e;
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-  nearest_hit_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      buf, ro, rd, alive, tout, sout, n, (hdr[9] & FLAG_ONE_SIDE) != 0);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool one_side = (hdr[9] & FLAG_ONE_SIDE) != 0;
+  if (st.tile == 0) {
+    nearest_hit_kernel<false><<<grid, kThreads, st.smem, s>>>(m, buf, 0, ro, rd, alive, tout,
+                                                              sout, n, one_side);
+  } else {
+    nearest_hit_kernel<true><<<grid, kThreads, st.smem, s>>>(m, buf, st.tile, ro, rd, alive,
+                                                             tout, sout, n, one_side);
+  }
   return (int)cudaGetLastError();
 }

@@ -19,8 +19,10 @@
 // at its first solid occluder, and the torus's Ferrari solve runs only on
 // lines that cross its inflated bounding sphere (txr_common.cuh).  Every
 // ring's (hit, u, v) is still an output, so rings are always tested.  The
-// table is staged in shared memory once per block.  Built with -fmad=false
-// so it rounds as its twin does.
+// table is staged in shared memory once per block, whole when it fits a
+// block's room at full occupancy, else in tiles of its slot records that every thread of the block stages in
+// turn (txr_common.cuh plan_stage): shadow_sweep_kernel<true>.  Built with
+// -fmad=false so it rounds as its twin does.
 
 #include <cuda_runtime.h>
 
@@ -31,11 +33,14 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
+// kTiled: the table is swept in tiles of `tile` floats (txr_common.cuh
+// Span); otherwise staged whole, and `tile` is unused.
+template <bool kTiled>
 __global__ void __launch_bounds__(kThreads)
-    shadow_sweep_kernel(txr::Meta m, const float* __restrict__ buf, const float* __restrict__ ro,
-                        const float* __restrict__ rd, const float* __restrict__ dist,
-                        const unsigned char* __restrict__ need, float* __restrict__ solid,
-                        float* __restrict__ ring, long long n) {
+    shadow_sweep_kernel(txr::Meta m, const float* __restrict__ buf, int tile,
+                        const float* __restrict__ ro, const float* __restrict__ rd,
+                        const float* __restrict__ dist, const unsigned char* __restrict__ need,
+                        float* __restrict__ solid, float* __restrict__ ring, long long n) {
   extern __shared__ float sm[];
   __shared__ int s_list[kThreads], s_wc[kWarps];
   const int tid = threadIdx.x;
@@ -48,36 +53,69 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 3 * m.n_ri; ++j) ring[j * n + own] = 0.0f;
   }
   if (count == 0) return;  // the whole block
-  txr::stage_table(m, buf, sm);
-  if (tid >= count) return;  // past the needed count: retire
-  const long long ray = base + s_list[tid];
-  const txr::f3 o = {ro[3 * ray], ro[3 * ray + 1], ro[3 * ray + 2]};
-  const txr::f3 d = {rd[3 * ray], rd[3 * ray + 1], rd[3 * ray + 2]};
-  const float dmax = dist[ray];
-  solid[ray] = txr::occluded(m, sm, o, d, dmax) ? 1.0f : 0.0f;
-  for (int k = 0; k < m.n_ri; ++k) {
-    float u, v;
-    bool h = txr::ring_shadow(sm + m.o_ri + txr::RRI * k, o, d, dmax, u, v);
-    ring[(3 * k) * n + ray] = h ? 1.0f : 0.0f;
-    ring[(3 * k + 1) * n + ray] = u;
-    ring[(3 * k + 2) * n + ray] = v;
+  if (!kTiled) txr::stage_table(m, buf, sm);
+  // past the needed count: retire, or with tiles stay for the stages
+  if (!kTiled && tid >= count) return;
+  const bool mine = tid < count;
+  const long long ray = base + (mine ? s_list[tid] : 0);
+  txr::f3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
+  float dmax = 0.0f;
+  if (mine) {
+    o = {ro[3 * ray], ro[3 * ray + 1], ro[3 * ray + 2]};
+    d = {rd[3 * ray], rd[3 * ray + 1], rd[3 * ray + 2]};
+    dmax = dist[ray];
   }
+  // each ring's (hit, u, v), for the rings of one span
+  auto rings = [&](const txr::Span& sp) {
+    const float* RI = sm - sp.a + m.o_ri;
+    for (int k = sp.lo[5]; k < sp.hi[5]; ++k) {
+      float u, v;
+      bool h = txr::ring_shadow(RI + txr::RRI * k, o, d, dmax, u, v);
+      ring[(3 * k) * n + ray] = h ? 1.0f : 0.0f;
+      ring[(3 * k + 1) * n + ray] = u;
+      ring[(3 * k + 2) * n + ray] = v;
+    }
+  };
+  if (!kTiled) {
+    solid[ray] = txr::occluded(m, sm, o, d, dmax) ? 1.0f : 0.0f;
+    rings(txr::whole_span(m));
+    return;
+  }
+  bool occ = false;
+  for (int a = 0; a < m.o_ld; a += tile) {
+    const int b = min(a + tile, m.o_ld);
+    txr::stage_tile(m, buf, sm, a, b);
+    if (mine) {
+      const txr::Span sp = txr::tile_span(m, a, b);
+      occ = occ || txr::occluded_span(m, sp, sm, o, d, dmax);
+      rings(sp);
+    }
+  }
+  if (mine) solid[ray] = occ ? 1.0f : 0.0f;
 }
 
 }  // namespace
 
 // hdr: the table header, read on the host; need: uint8 [n] or null for
-// every ray; solid [n] f32, ring [3 nr, n] f32 (unused without rings).
-// Returns cudaGetLastError() after the launch.
+// every ray; solid [n] f32, ring [3 nr, n] f32 (unused without rings); tile
+// as txr_step_probe's.  Returns cudaGetLastError() after the launch.
 extern "C" int txr_shadow_sweep(const int* hdr, const float* buf, const float* ro,
                                 const float* rd, const float* dist, const unsigned char* need,
-                                float* solid, float* ring, long long n, void* stream) {
+                                float* solid, float* ring, long long n, int tile, void* stream) {
   const txr::Meta m = txr::make_meta(hdr, 0.0f);
+  txr::Stage st;
+  if (int e = txr::plan_stage(m, shadow_sweep_kernel<false>, shadow_sweep_kernel<true>, kThreads,
+                              m.n_buf, tile, st))
+    return e;
   if (n <= 0) return 0;
-  const size_t smem = (size_t)m.n_buf * sizeof(float);
-  if (int e = txr::allow_smem(shadow_sweep_kernel, smem)) return e;
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-  shadow_sweep_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(m, buf, ro, rd, dist, need,
-                                                                       solid, ring, n);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (st.tile == 0) {
+    shadow_sweep_kernel<false><<<grid, kThreads, st.smem, s>>>(m, buf, 0, ro, rd, dist, need,
+                                                               solid, ring, n);
+  } else {
+    shadow_sweep_kernel<true><<<grid, kThreads, st.smem, s>>>(m, buf, st.tile, ro, rd, dist,
+                                                              need, solid, ring, n);
+  }
   return (int)cudaGetLastError();
 }

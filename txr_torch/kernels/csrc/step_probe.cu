@@ -48,9 +48,18 @@
 //  - the torus's Ferrari solve runs only on lines that cross its inflated
 //    bounding sphere, and a shadow ray stops at its first solid occluder
 //    (txr_common.cuh).
-// The scene (a few hundred floats) is copied into shared memory once per
-// block, so every primitive parameter is a broadcast read.  Counts are
-// runtime loop bounds: no specialisation on the scene's topology yet.
+// The scene table is copied into shared memory once per block, so every
+// primitive parameter is a broadcast read: the whole table when it fits the
+// room a block has at the kernel's register-limited occupancy (the demo's is
+// a few hundred floats).  A table that does not (thousands of primitives) is
+// swept in tiles of its slot records, in slot order with the
+// same strict '<', so the winner and its ties are the whole sweep's
+// (txr_common.cuh plan_stage, Span): step_probe_kernel<true>.  Then every
+// warp of a block stays for the stages and barriers; the sweep streams the
+// tiles once, the shading pairs once a round of kThreads pairs, and the
+// winner's record, material row and texture slot are read from global
+// memory.  Counts are runtime loop bounds: no specialisation on the scene's
+// topology yet.
 //
 // The environment request of the Pallas body (cube_base >= 0) is left out:
 // the main path fetches the environment once after the bounce loop, so
@@ -91,10 +100,84 @@ __device__ __forceinline__ void fill_ints(int* iout, long long col, long long N)
   iout[2 * N + col] = 0;
 }
 
+// A shading lane's (lane, light) pair: its column of the rows, the shadow
+// ray's origin, direction and distance, and its solid row.
+struct Pair {
+  float* G;
+  f3 so, ldir;
+  float dist;
+  int row;
+};
+
+// Pair q of the n_shade lanes' pairs, light by light: the light's
+// direction, distance and weight (calcShade2), the diffuse weight and the
+// specular term stored; → what its shadow probe needs.  Light records are
+// read at tab (shared or global memory).
+__device__ __forceinline__ Pair begin_pair(const Meta& m, const float* tab, int q, int n_shade,
+                                           const int* s_shade, const int* s_live,
+                                           const float (*s_in)[kThreads], float* col,
+                                           long long N) {
+  const int l = q / n_shade, src = s_shade[q - l * n_shade];
+  float* G = col + s_live[src];
+  const f3 so = {s_in[0][src], s_in[1][src], s_in[2][src]};
+  const f3 sn = {s_in[3][src], s_in[4][src], s_in[5][src]};
+  const f3 d = {s_in[6][src], s_in[7][src], s_in[8][src]};
+  const float m_spec = s_in[9][src];
+
+  f3 ldir;
+  float dist, wgt;
+  if (l < m.n_lp) {
+    const float* Lp = tab + m.o_lp + RLP * l;
+    float lx = Lp[0] - so.x, ly = Lp[1] - so.y, lz = Lp[2] - so.z;
+    dist = sqrtf(lx * lx + ly * ly + lz * lz + 1e-30f);
+    float inv = 1.0f / dist;
+    float dist_div = 1.0f + Lp[5] * dist + Lp[6] * dist * dist;
+    ldir = {lx * inv, ly * inv, lz * inv};
+    wgt = Lp[4] / dist_div;
+  } else {
+    const float* Ld = tab + m.o_ld + RLD * (l - m.n_lp);
+    float inv = 1.0f / sqrtf(Ld[0] * Ld[0] + Ld[1] * Ld[1] + Ld[2] * Ld[2] + 1e-30f);
+    ldir = {-Ld[0] * inv, -Ld[1] * inv, -Ld[2] * inv};
+    dist = MAX_DIST;
+    wgt = Ld[3];
+  }
+
+  float dp = txr::clampf(sn.x * ldir.x + sn.y * ldir.y + sn.z * ldir.z, 0.0f, 1.0f);
+  float lddn = ldir.x * sn.x + ldir.y * sn.y + ldir.z * sn.z;
+  float rfx = ldir.x - 2.0f * lddn * sn.x;
+  float rfy = ldir.y - 2.0f * lddn * sn.y;
+  float rfz = ldir.z - 2.0f * lddn * sn.z;
+  float sdp = txr::clampf(d.x * rfx + d.y * rfy + d.z * rfz, 0.0f, 1.0f);
+  float spec = m_spec > 0.0f ? powf(fmaxf(sdp, 1e-12f), m_spec) : 0.0f;
+  const int row = kBaseRows + l * (3 + 3 * m.n_ri);
+  G[row * N] = dp * wgt;
+  G[(row + 1) * N] = spec;
+  return Pair{G, so, ldir, dist, row + 2};
+}
+
+// The pair's (hit, u, v) rows of the rings of span sp (zeros without
+// shadows).
+__device__ __forceinline__ void ring_rows(const Meta& m, const txr::Span& sp, const float* sm,
+                                          const Pair& p, long long N, bool shadows) {
+  const float* RI = sm - sp.a + m.o_ri;
+  for (int k = sp.lo[5]; k < sp.hi[5]; ++k) {
+    float u = 0.0f, v = 0.0f;
+    bool h = shadows && txr::ring_shadow(RI + RRI * k, p.so, p.ldir, p.dist, u, v);
+    float* G = p.G + (long long)(p.row + 1 + 3 * k) * N;
+    G[0] = h ? 1.0f : 0.0f;
+    G[N] = u;
+    G[2 * N] = v;
+  }
+}
+
+// kTiled: the table is swept in tiles of `tile` floats (txr_common.cuh
+// Span); otherwise staged whole, and `tile` is unused.
+template <bool kTiled>
 __global__ void __launch_bounds__(kThreads)
-    step_probe_kernel(Meta m, const float* __restrict__ buf, const float* __restrict__ ro,
-                      const float* __restrict__ rd, const unsigned char* __restrict__ alive,
-                      float* __restrict__ fout, int* __restrict__ iout, long long n) {
+    step_probe_kernel(Meta m, const float* __restrict__ buf, int tile,
+                      const float* __restrict__ ro, const float* __restrict__ rd,
+                      const unsigned char* __restrict__ alive, float* __restrict__ fout,
+                      int* __restrict__ iout, long long n) {
   extern __shared__ float sm[];
   __shared__ int s_live[kThreads], s_shade[kThreads], s_wc1[kWarps], s_wc2[kWarps];
   // what a shading lane needs, by its place in the live list: the shadow
@@ -117,37 +200,48 @@ __global__ void __launch_bounds__(kThreads)
     fill_ints(iout, own, N);
   }
   if (n_live == 0) return;  // the whole block
-  txr::stage_table(m, buf, sm);
+  if (!kTiled) txr::stage_table(m, buf, sm);
   const int n_busy = (n_live + 31) >> 5;
-  if (warp >= n_busy) return;  // warps past the live count retire
+  // warps past the live count retire; with tiles they stay for the stages
+  if (!kTiled && warp >= n_busy) return;
   // thread j of the live warps sweeps the j-th live lane
   const bool mine = tid < n_live;
   const int L = mine ? s_live[tid] : 0;
   const long long ray = base + L;
 
-  const float* PL = sm + m.o_pl;
-  const float* SP = sm + m.o_sp;
-  const float* SU = sm + m.o_su;
-  const float* BX = sm + m.o_bx;
-  const float* TO = sm + m.o_to;
-  const float* RI = sm + m.o_ri;
-  const float* LP = sm + m.o_lp;
-  const float* LD = sm + m.o_ld;
-  const float* MAT = sm + m.o_mat;
-  const float* TEXSLOT = sm + m.o_texslot;
-  const float* TEXDIM = sm + m.o_texdim;
+  // the records after the sweep: staged whole, or read from global memory
+  const float* tab = kTiled ? buf : sm;
+  const float* PL = tab + m.o_pl;
+  const float* SP = tab + m.o_sp;
+  const float* SU = tab + m.o_su;
+  const float* BX = tab + m.o_bx;
+  const float* TO = tab + m.o_to;
+  const float* RI = tab + m.o_ri;
+  const float* MAT = tab + m.o_mat;
+  const float* TEXSLOT = tab + m.o_texslot;
+  const float* TEXDIM = tab + m.o_texdim;
   float* F = fout + ray;
+
+  // ---- nearest-hit sweep (calcInter), reference slot order ------------------
+  f3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
+  if (mine) {
+    o = {ro[3 * ray], ro[3 * ray + 1], ro[3 * ray + 2]};
+    d = {rd[3 * ray], rd[3 * ray + 1], rd[3 * ray + 2]};
+  }
+  float tmin = txr::INF_T;
+  int slot = 0;
+  if (kTiled) {
+    for (int a = 0; a < m.o_ld; a += tile) {
+      const int b = min(a + tile, m.o_ld);
+      txr::stage_tile(m, buf, sm, a, b);
+      if (mine) txr::nearest_span(m, txr::tile_span(m, a, b), sm, o, d, tmin, slot);
+    }
+  } else if (mine) {
+    txr::nearest_sweep(m, sm, o, d, tmin, slot);
+  }
 
   bool shade = false;
   if (mine) {
-    const f3 o = {ro[3 * ray], ro[3 * ray + 1], ro[3 * ray + 2]};
-    const f3 d = {rd[3 * ray], rd[3 * ray + 1], rd[3 * ray + 2]};
-
-    // ---- nearest-hit sweep (calcInter), reference slot order ----------------
-    float tmin;
-    int slot;
-    txr::nearest_sweep(m, sm, o, d, tmin, slot);
-
     const bool hit = tmin < txr::INF_T;
     const int b_sp = m.n_pl, b_su = b_sp + m.n_sp, b_bx = b_su + m.n_su, b_to = b_bx + m.n_bx;
     const int b_ri = b_to + m.n_to, b_lp = b_ri + m.n_ri, n_slots = b_lp + m.n_lp;
@@ -318,76 +412,76 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // ---- the lanes that shade: compact again, among the live warps ------------
-  // Then each thread of the live warps takes (lane, light) pairs, light by
-  // light, so a warp traces one light's shadow rays from neighbouring lanes
-  // and a lane's lights run side by side.
-  const int n_shade = txr::compact(shade, tid, n_busy, s_shade, s_wc2);
+  // ---- the lanes that shade: compact again ------------------------------------
+  // Then each thread takes (lane, light) pairs, light by light, so a warp
+  // traces one light's shadow rays from neighbouring lanes and a lane's
+  // lights run side by side: the live warps alone when the table is staged
+  // whole; with tiles, every warp, a round of kThreads pairs at a time, each
+  // round streaming the tiles once (a ray that found its occluder keeps
+  // taking part in the stages).
+  const int n_shade = txr::compact(shade, tid, kTiled ? kWarps : n_busy, s_shade, s_wc2);
   const int n_pairs = n_shade * n_lights;
   const bool shadows = m.flags & FLAG_SHADOW;
+  float* col = fout + base;
+  if (!kTiled) {
 #pragma unroll 1
-  for (int q = tid; q < n_pairs; q += n_busy * 32) {
-    const int l = q / n_shade, src = s_shade[q - l * n_shade];
-    float* G = fout + base + s_live[src];
-    const f3 so = {s_in[0][src], s_in[1][src], s_in[2][src]};
-    const f3 sn = {s_in[3][src], s_in[4][src], s_in[5][src]};
-    const f3 d = {s_in[6][src], s_in[7][src], s_in[8][src]};
-    const float m_spec = s_in[9][src];
-
-    // the light's direction, distance and weight (calcShade2)
-    f3 ldir;
-    float dist, wgt;
-    if (l < m.n_lp) {
-      const float* Lp = LP + RLP * l;
-      float lx = Lp[0] - so.x, ly = Lp[1] - so.y, lz = Lp[2] - so.z;
-      dist = sqrtf(lx * lx + ly * ly + lz * lz + 1e-30f);
-      float inv = 1.0f / dist;
-      float dist_div = 1.0f + Lp[5] * dist + Lp[6] * dist * dist;
-      ldir = {lx * inv, ly * inv, lz * inv};
-      wgt = Lp[4] / dist_div;
-    } else {
-      const float* Ld = LD + RLD * (l - m.n_lp);
-      float inv = 1.0f / sqrtf(Ld[0] * Ld[0] + Ld[1] * Ld[1] + Ld[2] * Ld[2] + 1e-30f);
-      ldir = {-Ld[0] * inv, -Ld[1] * inv, -Ld[2] * inv};
-      dist = MAX_DIST;
-      wgt = Ld[3];
+    for (int q = tid; q < n_pairs; q += n_busy * 32) {
+      const Pair p = begin_pair(m, sm, q, n_shade, s_shade, s_live, s_in, col, N);
+      p.G[p.row * N] = shadows && txr::occluded(m, sm, p.so, p.ldir, p.dist) ? 1.0f : 0.0f;
+      ring_rows(m, txr::whole_span(m), sm, p, N, shadows);
     }
-
-    float dp = txr::clampf(sn.x * ldir.x + sn.y * ldir.y + sn.z * ldir.z, 0.0f, 1.0f);
-    float lddn = ldir.x * sn.x + ldir.y * sn.y + ldir.z * sn.z;
-    float rfx = ldir.x - 2.0f * lddn * sn.x;
-    float rfy = ldir.y - 2.0f * lddn * sn.y;
-    float rfz = ldir.z - 2.0f * lddn * sn.z;
-    float sdp = txr::clampf(d.x * rfx + d.y * rfy + d.z * rfz, 0.0f, 1.0f);
-    float spec = m_spec > 0.0f ? powf(fmaxf(sdp, 1e-12f), m_spec) : 0.0f;
-    int row = kBaseRows + l * (3 + 3 * m.n_ri);
-    G[row++ * N] = dp * wgt;
-    G[row++ * N] = spec;
-    G[row++ * N] = shadows && txr::occluded(m, sm, so, ldir, dist) ? 1.0f : 0.0f;
-    for (int k = 0; k < m.n_ri; ++k) {
-      float u = 0.0f, v = 0.0f;
-      bool h = shadows && txr::ring_shadow(RI + RRI * k, so, ldir, dist, u, v);
-      G[row++ * N] = h ? 1.0f : 0.0f;
-      G[row++ * N] = u;
-      G[row++ * N] = v;
+    return;
+  }
+#pragma unroll 1
+  for (int q0 = 0; q0 < n_pairs; q0 += kThreads) {
+    const int q = q0 + tid;
+    const bool pair = q < n_pairs;
+    Pair p{};
+    if (pair) p = begin_pair(m, buf, q, n_shade, s_shade, s_live, s_in, col, N);
+    bool occ = false;
+    if (shadows) {
+      for (int a = 0; a < m.o_ld; a += tile) {
+        const int b = min(a + tile, m.o_ld);
+        txr::stage_tile(m, buf, sm, a, b);
+        if (pair) {
+          const txr::Span sp = txr::tile_span(m, a, b);
+          occ = occ || txr::occluded_span(m, sp, sm, p.so, p.ldir, p.dist);
+          ring_rows(m, sp, sm, p, N, true);
+        }
+      }
+    } else if (pair) {
+      ring_rows(m, txr::whole_span(m), sm, p, N, false);
     }
+    if (pair) p.G[p.row * N] = occ ? 1.0f : 0.0f;
   }
 }
 
 }  // namespace
 
 // hdr: the table header (txr::Meta's integer fields in order), read on the
-// host; alive: uint8 [n] or null for every lane.  Returns cudaGetLastError()
-// after the launch; the caller raises on non-zero.
+// host; alive: uint8 [n] or null for every lane; tile: 0 to stage the table
+// as txr::plan_stage finds best, > 0 to force tiles of that many floats
+// (tests); n_tiles: where the number of stages a block makes a sweep is
+// written (1: the whole table), or null.  Returns cudaGetLastError() after
+// the launch; the caller raises on non-zero.
 extern "C" int txr_step_probe(const int* hdr, const float* buf, float pix_angle, const float* ro,
                               const float* rd, const unsigned char* alive, float* fout,
-                              int* iout, long long n, void* stream) {
+                              int* iout, long long n, int tile, int* n_tiles, void* stream) {
   const Meta m = txr::make_meta(hdr, pix_angle);
+  txr::Stage st;
+  if (int e = txr::plan_stage(m, step_probe_kernel<false>, step_probe_kernel<true>, kThreads,
+                              m.n_buf, tile, st))
+    return e;
+  if (n_tiles) *n_tiles = st.n_tiles;
   if (n <= 0) return 0;
-  const size_t smem = (size_t)m.n_buf * sizeof(float);
-  if (int e = txr::allow_smem(step_probe_kernel, smem)) return e;
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-  step_probe_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(m, buf, ro, rd, alive, fout,
-                                                                     iout, n);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (st.tile == 0) {
+    step_probe_kernel<false><<<grid, kThreads, st.smem, s>>>(m, buf, 0, ro, rd, alive, fout,
+                                                             iout, n);
+  } else {
+    step_probe_kernel<true><<<grid, kThreads, st.smem, s>>>(m, buf, st.tile, ro, rd, alive,
+                                                            fout, iout, n);
+  }
   return (int)cudaGetLastError();
 }

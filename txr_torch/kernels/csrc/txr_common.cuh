@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+
 namespace txr {
 
 constexpr float BIG = 1.0e30f;
@@ -333,61 +335,120 @@ __device__ __forceinline__ void stage_table(const Meta& m, const float* __restri
   __syncthreads();
 }
 
-// calcInter (rt.frag:587-628): every slot in reference order (planes,
-// spheres, surfaces, boxes, toruses, rings, point-light bulbs) with strict
-// '<'.  A miss leaves tmin = INF_T and slot 0.
-__device__ __forceinline__ void nearest_sweep(const Meta& m, const float* sm, f3 o, f3 d,
-                                              float& tmin, int& slot) {
+// A table too large for a block's shared memory is swept in tiles of its
+// slot records, floats [0, o_ld) in slot order (planes ... point-light
+// bulbs).  A tile takes the records that start in floats [a, b) and is
+// staged from float a with the RSU - 1 floats after b, so each record lies
+// whole in the stage of the tile it starts in.  Span: that tile's records,
+// by slot type in header order, [lo, hi) of each type's records, read at
+// sm + offset - a.  The whole table is one span from float 0.
+constexpr int N_SLOT_TYPES = 7;
+constexpr int TILE_PAD = RSU - 1;
+
+struct Span {
+  int a;
+  int lo[N_SLOT_TYPES], hi[N_SLOT_TYPES];
+};
+
+__device__ __forceinline__ Span whole_span(const Meta& m) {
+  return Span{0, {0, 0, 0, 0, 0, 0, 0}, {m.n_pl, m.n_sp, m.n_su, m.n_bx, m.n_to, m.n_ri, m.n_lp}};
+}
+
+__device__ __forceinline__ Span tile_span(const Meta& m, int a, int b) {
+  const int n[N_SLOT_TYPES] = {m.n_pl, m.n_sp, m.n_su, m.n_bx, m.n_to, m.n_ri, m.n_lp};
+  const int o[N_SLOT_TYPES] = {m.o_pl, m.o_sp, m.o_su, m.o_bx, m.o_to, m.o_ri, m.o_lp};
+  const int w[N_SLOT_TYPES] = {RPL, RSP, RSU, RBX, RTO, RRI, RLP};
+  // the records of a type that start before float x
+  auto before = [&](int j, int x) {
+    return x <= o[j] ? 0 : min(n[j], (x - o[j] + w[j] - 1) / w[j]);
+  };
+  Span s;
+  s.a = a;
+#pragma unroll
+  for (int j = 0; j < N_SLOT_TYPES; ++j) s.lo[j] = before(j, a), s.hi[j] = before(j, b);
+  return s;
+}
+
+// Stage the tile of floats [a, b) of the slot records: every thread of the
+// block calls it, between barriers that it makes itself.
+__device__ __forceinline__ void stage_tile(const Meta& m, const float* __restrict__ buf,
+                                           float* sm, int a, int b) {
+  __syncthreads();  // the last tile's readers are done
+  const int end = min(b + TILE_PAD, m.o_ld);
+  for (int k = a + threadIdx.x; k < end; k += blockDim.x) sm[k - a] = buf[k];
+  __syncthreads();
+}
+
+// calcInter (rt.frag:587-628) over a span: its slots in reference order
+// (planes, spheres, surfaces, boxes, toruses, rings, point-light bulbs) with
+// strict '<', on from (tmin, slot).  Spans swept in slot order give the
+// whole sweep's winner and ties.
+__device__ __forceinline__ void nearest_span(const Meta& m, const Span& sp, const float* sm,
+                                             f3 o, f3 d, float& tmin, int& slot) {
   const bool one_side = m.flags & FLAG_ONE_SIDE;
-  tmin = INF_T;
-  slot = 0;
-  int s = 0;
+  const float* tab = sm - sp.a;
+  const int b_sp = m.n_pl, b_su = b_sp + m.n_sp, b_bx = b_su + m.n_su, b_to = b_bx + m.n_bx;
+  const int b_ri = b_to + m.n_to, b_lp = b_ri + m.n_ri;
   float t;
-  for (int k = 0; k < m.n_pl; ++k, ++s)
-    if (plane_test(sm + m.o_pl + RPL * k, o, d, one_side, t) && t < tmin) tmin = t, slot = s;
-  for (int k = 0; k < m.n_sp; ++k, ++s) {
-    const float* S = sm + m.o_sp + RSP * k;
-    if (sphere_test(S, S[3], S[4] != 0.0f, o, d, t) && t < tmin) tmin = t, slot = s;
+  for (int k = sp.lo[0]; k < sp.hi[0]; ++k)
+    if (plane_test(tab + m.o_pl + RPL * k, o, d, one_side, t) && t < tmin) tmin = t, slot = k;
+  for (int k = sp.lo[1]; k < sp.hi[1]; ++k) {
+    const float* S = tab + m.o_sp + RSP * k;
+    if (sphere_test(S, S[3], S[4] != 0.0f, o, d, t) && t < tmin) tmin = t, slot = b_sp + k;
   }
-  for (int k = 0; k < m.n_su; ++k, ++s)
-    if (surface_test(sm + m.o_su + RSU * k, o, d, t) && t < tmin) tmin = t, slot = s;
-  for (int k = 0; k < m.n_bx; ++k, ++s)
-    if (box_test(sm + m.o_bx + RBX * k, o, d, t) && t < tmin) tmin = t, slot = s;
-  for (int k = 0; k < m.n_to; ++k, ++s)
-    if (torus_test(sm + m.o_to + RTO * k, o, d, t) && t < tmin) tmin = t, slot = s;
-  for (int k = 0; k < m.n_ri; ++k, ++s) {
+  for (int k = sp.lo[2]; k < sp.hi[2]; ++k)
+    if (surface_test(tab + m.o_su + RSU * k, o, d, t) && t < tmin) tmin = t, slot = b_su + k;
+  for (int k = sp.lo[3]; k < sp.hi[3]; ++k)
+    if (box_test(tab + m.o_bx + RBX * k, o, d, t) && t < tmin) tmin = t, slot = b_bx + k;
+  for (int k = sp.lo[4]; k < sp.hi[4]; ++k)
+    if (torus_test(tab + m.o_to + RTO * k, o, d, t) && t < tmin) tmin = t, slot = b_to + k;
+  for (int k = sp.lo[5]; k < sp.hi[5]; ++k) {
     float x, pp;
-    if (ring_test(sm + m.o_ri + RRI * k, o, d, t, x, pp) && t < tmin) tmin = t, slot = s;
+    if (ring_test(tab + m.o_ri + RRI * k, o, d, t, x, pp) && t < tmin) tmin = t, slot = b_ri + k;
   }
-  for (int k = 0; k < m.n_lp; ++k, ++s) {
-    const float* L = sm + m.o_lp + RLP * k;
-    if (sphere_test(L, L[3], false, o, d, t) && t < tmin) tmin = t, slot = s;
+  for (int k = sp.lo[6]; k < sp.hi[6]; ++k) {
+    const float* L = tab + m.o_lp + RLP * k;
+    if (sphere_test(L, L[3], false, o, d, t) && t < tmin) tmin = t, slot = b_lp + k;
   }
 }
 
-// inShadow's solid part (rt.frag:630-658): any occluder closer than dist.
-// Spheres are tested solid, planes occlude only when two-sided; rings are
-// left to the caller, which needs each ring's (hit, u, v).  The bit is an
-// OR, so the ray stops at its first occluder, testing the cheap types
-// first: spheres, two-sided planes, boxes, surfaces, then toruses.
-__device__ __forceinline__ bool occluded(const Meta& m, const float* sm, f3 o, f3 d,
-                                         float dist) {
+// The whole table's sweep.  A miss leaves tmin = INF_T and slot 0.
+__device__ __forceinline__ void nearest_sweep(const Meta& m, const float* sm, f3 o, f3 d,
+                                              float& tmin, int& slot) {
+  tmin = INF_T;
+  slot = 0;
+  nearest_span(m, whole_span(m), sm, o, d, tmin, slot);
+}
+
+// inShadow's solid part (rt.frag:630-658) over a span: any occluder closer
+// than dist.  Spheres are tested solid, planes occlude only when two-sided;
+// rings are left to the caller, which needs each ring's (hit, u, v).  The
+// bit is an OR, so the ray stops at its first occluder, testing the cheap
+// types first: spheres, two-sided planes, boxes, surfaces, then toruses.
+__device__ __forceinline__ bool occluded_span(const Meta& m, const Span& sp, const float* sm,
+                                              f3 o, f3 d, float dist) {
   const bool one_side = m.flags & FLAG_ONE_SIDE;
+  const float* tab = sm - sp.a;
   float t;
-  for (int k = 0; k < m.n_sp; ++k) {
-    const float* S = sm + m.o_sp + RSP * k;
+  for (int k = sp.lo[1]; k < sp.hi[1]; ++k) {
+    const float* S = tab + m.o_sp + RSP * k;
     if (sphere_test(S, S[3], false, o, d, t) && t < dist) return true;
   }
   if (!one_side)
-    for (int k = 0; k < m.n_pl; ++k)
-      if (plane_test(sm + m.o_pl + RPL * k, o, d, one_side, t) && t < dist) return true;
-  for (int k = 0; k < m.n_bx; ++k)
-    if (box_test(sm + m.o_bx + RBX * k, o, d, t) && t < dist) return true;
-  for (int k = 0; k < m.n_su; ++k)
-    if (surface_test(sm + m.o_su + RSU * k, o, d, t) && t < dist) return true;
-  for (int k = 0; k < m.n_to; ++k)
-    if (torus_test(sm + m.o_to + RTO * k, o, d, t) && t < dist) return true;
+    for (int k = sp.lo[0]; k < sp.hi[0]; ++k)
+      if (plane_test(tab + m.o_pl + RPL * k, o, d, one_side, t) && t < dist) return true;
+  for (int k = sp.lo[3]; k < sp.hi[3]; ++k)
+    if (box_test(tab + m.o_bx + RBX * k, o, d, t) && t < dist) return true;
+  for (int k = sp.lo[2]; k < sp.hi[2]; ++k)
+    if (surface_test(tab + m.o_su + RSU * k, o, d, t) && t < dist) return true;
+  for (int k = sp.lo[4]; k < sp.hi[4]; ++k)
+    if (torus_test(tab + m.o_to + RTO * k, o, d, t) && t < dist) return true;
   return false;
+}
+
+__device__ __forceinline__ bool occluded(const Meta& m, const float* sm, f3 o, f3 d,
+                                         float dist) {
+  return occluded_span(m, whole_span(m), sm, o, d, dist);
 }
 
 // Ring k's shadow-ray hit closer than dist, with its (u, v):
@@ -428,11 +489,77 @@ __device__ __forceinline__ int compact(bool pred, int item, int nwarps, int* lis
   return total;
 }
 
-// Raise the dynamic shared-memory limit of a kernel when its table needs it.
+// Raise a kernel's dynamic shared-memory limit when it and the kernel's own
+// (static) shared memory pass the 48 KB a block gets without asking.
 template <typename Kernel>
-inline int allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
+inline int allow_smem(Kernel kernel, size_t smem, size_t own) {
+  if (smem + own <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// How a launch stages the table.  A kernel's room is the shared memory an
+// SM leaves each block when as many blocks share the SM as the kernel's
+// registers and threads allow, less the kernel's own (static) shared memory
+// and the opt-in's cap.  When `whole_floats` (what the whole kernel stages)
+// fit the whole kernel's room, it runs as ever: tile 0, one stage.  Else the
+// tiled kernel sweeps the slot records (floats [0, m.o_ld)) in n_tiles tiles
+// of `tile` floats, each staged with TILE_PAD more, a tile as large as its
+// room allows, then made even: so a table never costs a block of occupancy
+// (the tiles' barriers, one pair a tile, are few beside a tile's sweep).
+// `force` > 0 sets the tile instead (tests).  Derived from the current
+// card's limits at each launch; nothing to configure.  The chosen kernel's
+// shared-memory limit is raised to what it needs.
+struct Stage {
+  int tile, n_tiles;
+  size_t smem;
+};
+
+template <typename Kernel>
+inline int smem_room(Kernel kernel, int threads, long long& room, size_t& own) {
+  int dev, optin, per_sm, reserved, blocks = 1;
+  cudaFuncAttributes fa;
+  if (int e = (int)cudaGetDevice(&dev)) return e;
+  if (int e = (int)cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+    return e;
+  if (int e = (int)cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                          dev))
+    return e;
+  if (int e = (int)cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev))
+    return e;
+  if (int e = (int)cudaFuncGetAttributes(&fa, kernel)) return e;
+  if (int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0))
+    return e;
+  own = fa.sharedSizeBytes;
+  room = std::min<long long>(optin, per_sm / std::max(blocks, 1) - reserved) - (long long)own;
+  return 0;
+}
+
+template <typename Whole, typename Tiled>
+inline int plan_stage(const Meta& m, Whole whole, Tiled tiled, int threads, int whole_floats,
+                      int force, Stage& st) {
+  long long room;
+  size_t own;
+  if (force <= 0) {
+    if (int e = smem_room(whole, threads, room, own)) return e;
+    const size_t need = (size_t)whole_floats * sizeof(float);
+    if ((long long)need <= room) {
+      st = Stage{0, 1, need};
+      return allow_smem(whole, need, own);
+    }
+  }
+  if (int e = smem_room(tiled, threads, room, own)) return e;
+  const int n_rec = m.o_ld;
+  int tile = force;
+  if (tile <= 0) {
+    const long long most = room / (long long)sizeof(float) - TILE_PAD;
+    if (most < RSU) return (int)cudaErrorInvalidValue;
+    const int n_tiles = (int)((n_rec + most - 1) / most);
+    tile = (n_rec + n_tiles - 1) / n_tiles;
+  }
+  tile = std::max(tile, 1);
+  st = Stage{tile, std::max((n_rec + tile - 1) / tile, 1),
+             (size_t)(tile + TILE_PAD) * sizeof(float)};
+  return allow_smem(tiled, st.smem, own);
 }
 
 }  // namespace txr

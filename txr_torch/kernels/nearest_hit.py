@@ -56,14 +56,15 @@ def nearest_hit_sweep(buf, hdr, ro, rd, alive=None):
 
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
-def launch(buf, hdr, ro, rd, alive=None):
+def launch(buf, hdr, ro, rd, alive=None, tile=0):
     """Launch the kernel of this table's topology on CUDA rays [N, 3] →
     (tmin [N] f32, slot [N] int32), on the current stream; ``alive`` as in
-    ``nearest_hit_sweep``.  No host synchronisation.  Counts its launches
-    in ``launch.launches``."""
+    ``nearest_hit_sweep``; the table staged whole or in tiles, ``tile`` as
+    in ``step_probe.launch``.  No host synchronisation.  Counts its
+    launches in ``launch.launches``."""
     dev = ro.device
     if dev.type != "cuda":
         raise ValueError(f"nearest_hit: no kernel for device {dev}")
@@ -77,7 +78,8 @@ def launch(buf, hdr, ro, rd, alive=None):
         return t, slot
     build.run("nearest_hit", "txr_nearest_hit", _ARGS, dev, hdr, buf.data_ptr(),
               ro.data_ptr(), rd.data_ptr(), None if mask is None else mask.data_ptr(),
-              t.data_ptr(), slot.data_ptr(), N, defines=build.topology(hdr))
+              t.data_ptr(), slot.data_ptr(), N, int(tile),
+              defines=build.topology(hdr))
     launch.launches += 1
     return t, slot
 

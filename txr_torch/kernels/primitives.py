@@ -66,8 +66,10 @@ def _plane_test(ppos, pnrm, i, ro, rd, one_side):
 
 
 def _sphere_test(cx, cy, cz, rad, hol, ro, rd):
-    """rt.frag:342-354.  hol: the hollow flag, or None = never hollow
-    (shadow rays and light bulbs test spheres solid)."""
+    """rt.frag:342-354.  hol: the hollow flag (a bool, or a bool tensor
+    that broadcasts with the rays), or None = never hollow (shadow rays and
+    light bulbs test spheres solid).  Elementwise: centres and radii may be
+    [K] against rays of [N, 1], every pair rounded as one at a time."""
     rox, roy, roz = ro
     rdx, rdy, rdz = rd
     ocx, ocy, ocz = rox - cx, roy - cy, roz - cz
@@ -77,7 +79,9 @@ def _sphere_test(cx, cy, cz, rad, hol, ro, rd):
     has = h >= 0.0
     hs = torch.sqrt(torch.where(has, h, 0.0))
     t = -b - hs
-    if hol:
+    if isinstance(hol, torch.Tensor):
+        t = torch.where(hol & (t < 0.0), -b + hs, t)
+    elif hol:
         t = torch.where(t < 0.0, -b + hs, t)
     return t, has & (t > 0.0)
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from txr_torch.kernels.primitives import (
@@ -195,15 +196,39 @@ def check_table(name, buf, hdr, device):
         raise ValueError(f"{name}: buf must be pack_scene's f32 table on the rays' device")
 
 
-def slot_tests(cnt, sec, o3, d3, one_side):
+# spheres the twins' sweeps test at once: [N, SPHERE_BLOCK] temporaries
+SPHERE_BLOCK = 256
+
+
+def _sphere_blocks(S, o3, d3, hollow):
+    """(t, hit) [N, K] of the sphere records S in blocks of SPHERE_BLOCK, in
+    order, each pair by ``_sphere_test``'s elementwise arithmetic (the bits
+    of one sphere at a time); ``hollow``: the records' hollow flags, else
+    every sphere solid."""
+    o, d = tuple(x[:, None] for x in o3), tuple(x[:, None] for x in d3)
+    for lo in range(0, S.shape[0], SPHERE_BLOCK):
+        c = torch.from_numpy(np.ascontiguousarray(S[lo:lo + SPHERE_BLOCK, :5])).to(o3[0].device)
+        yield _sphere_test(c[:, 0], c[:, 1], c[:, 2], c[:, 3], (c[:, 4] != 0) if hollow else None,
+                           o, d)
+
+
+def _columns(groups):
+    """(t, hit) groups of [N] or [N, K] → one (t, hit) [N] a slot."""
+    for t, hit in groups:
+        if t.ndim == 1:
+            yield t, hit
+        else:
+            yield from zip(t.unbind(1), hit.unbind(1))
+
+
+def slot_groups(cnt, sec, o3, d3, one_side):
     """(t, hit) of every slot in reference order (planes, spheres, surfaces,
     boxes, toruses, rings, point-light bulbs): o3, d3 are (x, y, z) tuples
-    of [N] tensors."""
+    of [N] tensors; [N] for a slot, [N, K] for K spheres tested together."""
     PL, SP, SU, BX, TO, RI, LP = (sec[k] for k in SLOT_ORDER)
     for i in range(cnt["planes"]):
         yield _plane_test(PL[:, 0:3], PL[:, 3:6], i, o3, d3, one_side)
-    for i in range(cnt["spheres"]):
-        yield _sphere_test(SP[i, 0], SP[i, 1], SP[i, 2], SP[i, 3], SP[i, 4] != 0, o3, d3)
+    yield from _sphere_blocks(SP, o3, d3, hollow=True)
     for i in range(cnt["surfaces"]):
         yield _surface_test(SU[:, 0:3], SU[:, 3:7], SU[:, 7:13], SU[:, 13:16], SU[:, 16:19],
                             i, o3, d3)
@@ -218,25 +243,38 @@ def slot_tests(cnt, sec, o3, d3, one_side):
         yield _sphere_test(LP[i, 0], LP[i, 1], LP[i, 2], LP[i, 3], None, o3, d3)
 
 
+def slot_tests(cnt, sec, o3, d3, one_side):
+    """``slot_groups`` one slot at a time: (t, hit) [N] each."""
+    return _columns(slot_groups(cnt, sec, o3, d3, one_side))
+
+
 def sweep_ref(cnt, sec, o3, d3, one_side):
     """Nearest hit over every slot in reference order with strict ``<`` →
-    (tmin [N] with INF_T on a miss, slot [N] int64, 0 on a miss)."""
+    (tmin [N] with INF_T on a miss, slot [N] int64, 0 on a miss).  A group
+    of slots gives its least hit, the first of equals, as the strict ``<``
+    slot after slot does."""
     tmin = torch.full_like(o3[0], INF_T)
     slot = torch.zeros(o3[0].shape, dtype=torch.int64, device=o3[0].device)
-    for s, (t, hit) in enumerate(slot_tests(cnt, sec, o3, d3, one_side)):
+    s = 0
+    for t, hit in slot_groups(cnt, sec, o3, d3, one_side):
+        width, k = 1, 0
+        if t.ndim == 2:     # a group of slots: its first least hit
+            width = t.shape[1]
+            t, k = torch.where(hit, t, INF_T).min(dim=1)
+            hit = t < INF_T
         upd = hit & (t < tmin)
         tmin = torch.where(upd, t, tmin)
-        slot = torch.where(upd, s, slot)
+        slot = torch.where(upd, s + k, slot)
+        s += width
     return tmin, slot
 
 
-def occluder_tests(cnt, sec, o3, d3, one_side):
+def occluder_groups(cnt, sec, o3, d3, one_side):
     """(t, hit) of every solid occluder of a shadow ray, in the kernel's
-    order (cheapest first): spheres (tested solid), planes only when
-    two-sided, boxes, surfaces, toruses."""
+    order (cheapest first): spheres (tested solid, in groups [N, K]),
+    planes only when two-sided, boxes, surfaces, toruses."""
     PL, SP, SU, BX, TO = (sec[k] for k in SLOT_ORDER[:5])
-    for i in range(cnt["spheres"]):
-        yield _sphere_test(SP[i, 0], SP[i, 1], SP[i, 2], SP[i, 3], None, o3, d3)
+    yield from _sphere_blocks(SP, o3, d3, hollow=False)
     if not one_side:
         for i in range(cnt["planes"]):
             yield _plane_test(PL[:, 0:3], PL[:, 3:6], i, o3, d3, one_side)
@@ -249,6 +287,11 @@ def occluder_tests(cnt, sec, o3, d3, one_side):
         yield _torus_test(TO[:, 0:3], TO[:, 3:7], TO[:, 7:9], i, o3, d3)
 
 
+def occluder_tests(cnt, sec, o3, d3, one_side):
+    """``occluder_groups`` one occluder at a time: (t, hit) [N] each."""
+    return _columns(occluder_groups(cnt, sec, o3, d3, one_side))
+
+
 def occlusion_ref(cnt, sec, o3, d3, dist, one_side):
     """Any hit closer than ``dist`` [N] over ``occluder_tests`` → (solid [N]
     f32 0/1, [hit, u, v] [N] f32 for each ring, zeros where the ring is not
@@ -257,8 +300,8 @@ def occlusion_ref(cnt, sec, o3, d3, dist, one_side):
     RI = sec["rings"]
     solid = torch.zeros(o3[0].shape, dtype=torch.bool, device=o3[0].device)
     occl = lambda t, h: h & (t < dist)
-    for t, h in occluder_tests(cnt, sec, o3, d3, one_side):
-        solid |= occl(t, h)
+    for t, h in occluder_groups(cnt, sec, o3, d3, one_side):
+        solid |= occl(t, h) if t.ndim == 1 else (h & (t < dist[:, None])).any(1)
     rings = []
     for i in range(cnt["rings"]):
         t, h, x, _, pp = _ring_test(RI[:, 0:3], RI[:, 3:7], RI[:, 7], RI[:, 8], i, o3, d3)

@@ -66,13 +66,15 @@ def shadow_sweep(buf, hdr, ro, rd, dist, need=None):
 
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_void_p]
 
 
-def launch(buf, hdr, ro, rd, dist, need=None):
+def launch(buf, hdr, ro, rd, dist, need=None, tile=0):
     """Launch the kernel on a packed table and CUDA rays ro, rd [N, 3],
     dist [N] → (solid, ring_hit, ring_uv), on the current stream; ``need``
-    as in ``shadow_sweep``.  Counts its launches in ``launch.launches``."""
+    as in ``shadow_sweep``; the table staged whole or in tiles, ``tile`` as
+    in ``step_probe.launch``.  Counts its launches in ``launch.launches``."""
     dev = ro.device
     if dev.type != "cuda":
         raise ValueError(f"shadow_sweep: no kernel for device {dev}")
@@ -86,7 +88,7 @@ def launch(buf, hdr, ro, rd, dist, need=None):
         build.run("shadow_sweep", "txr_shadow_sweep", _ARGS, dev, hdr, buf.data_ptr(),
                   ro.data_ptr(), rd.data_ptr(), dist.data_ptr(),
                   None if mask is None else mask.data_ptr(), solid.data_ptr(),
-                  ring.data_ptr(), N)
+                  ring.data_ptr(), N, int(tile))
         launch.launches += 1
     return _split(solid, ring)
 

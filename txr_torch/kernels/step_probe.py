@@ -362,8 +362,10 @@ def step_probe(scene, atlas, ro, rd, *, one_side=True, shadow_enabled=True,
     kernels read (t on a live miss, the base rows and ints of a live
     light-bulb hit) and leaves the rest unwritten.  The twin fills
     either way.  ``step_probe.unfilled`` counts the calls made without
-    ``fill``, on either device (``render/graphs.py`` tallies them per
-    bounce step for the tracer)."""
+    ``fill``, on either device, and ``step_probe.tiles`` the tiles of the
+    table each call's blocks stage (``launch``; 1 a call on the CPU, whose
+    twin does not tile): ``render/graphs.py`` tallies both per bounce step
+    for the tracer."""
     dev = resolve_device(device)
     check_rays("step_probe", dev, ro, rd)
     if scene.device != dev:
@@ -374,21 +376,29 @@ def step_probe(scene, atlas, ro, rd, *, one_side=True, shadow_enabled=True,
     step_probe.unfilled += not fill
     if dev.type == "cpu":
         check_mask("step_probe", dev, alive, ro.shape[0])
+        step_probe.tiles += 1       # the twin sweeps the whole table at once
         return step_probe_ref(buf, hdr, ro, rd, pix_angle, alive)
     return launch(buf, hdr, ro, rd, pix_angle, alive)
 
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p]
 
 
-def launch(buf, hdr, ro, rd, pix_angle=0.0, alive=None):
+def launch(buf, hdr, ro, rd, pix_angle=0.0, alive=None, tile=0):
     """Launch the kernel on tables packed by ``pack_scene`` and CUDA rays
     → (f [NF, N] f32, i [3, N] int32), on the current stream; ``alive`` as
     in ``step_probe``, and ``hdr``'s ``FLAG_FILL`` as its ``fill``: set,
     every element of f and i is written; clear, only the rows the consume
-    kernels read (the others hold what ``torch.empty`` gave).  Counts its
-    launches in ``step_probe.launches``."""
+    kernels read (the others hold what ``torch.empty`` gave).  The kernel
+    stages the table in shared memory whole when it fits the room a block
+    has at the kernel's register-limited occupancy, else sweeps it in
+    tiles sized from the table and the card's limits
+    (``csrc/txr_common.cuh: plan_stage``); ``tile`` > 0 forces tiles of
+    that many floats (tests).  Counts its launches in
+    ``step_probe.launches`` and the tiles each block stages a sweep (1: the
+    whole table) in ``step_probe.tiles``."""
     dev = ro.device
     if dev.type != "cuda":
         raise ValueError(f"step_probe: no kernel for device {dev}")
@@ -400,15 +410,19 @@ def launch(buf, hdr, ro, rd, pix_angle=0.0, alive=None):
     i = torch.empty((3, N), dtype=torch.int32, device=dev)
     if N == 0:
         return f, i
+    tiles = ctypes.c_int(0)
     build.run("step_probe", "txr_step_probe", _ARGS, dev, hdr, buf.data_ptr(),
               float(pix_angle), ro.data_ptr(), rd.data_ptr(),
-              None if mask is None else mask.data_ptr(), f.data_ptr(), i.data_ptr(), N)
+              None if mask is None else mask.data_ptr(), f.data_ptr(), i.data_ptr(), N,
+              int(tile), ctypes.addressof(tiles))
     step_probe.launches += 1
+    step_probe.tiles += tiles.value
     return f, i
 
 
 step_probe.launches = 0
 step_probe.unfilled = 0
+step_probe.tiles = 0
 
 
 class Rows(collections.abc.Mapping):

@@ -253,7 +253,9 @@ class TraceUnit:
                        else None)
         self.live = {}
         self.steps_run = []
-        self.unfilled = {}
+        self.unfilled, self.tiles = {}, {}
+        # the slots a nearest-hit sweep tests (the tracer's ``pairs``)
+        self.n_slots = sum(frame.scene.counts[k] for k in sp.SLOT_ORDER)
         if train:
             self.stage = {C: _Blob(self._stage_fields(C), dev) for C in self.caps}
             self.g = {k: torch.zeros((R + 1,) + tuple(v.shape[1:]), device=dev)
@@ -285,7 +287,7 @@ class TraceUnit:
 
     def _step(self, C):
         f, st, R = self.frame, self.st, self.R
-        before = sp.step_probe.unfilled
+        before = sp.step_probe.unfilled, sp.step_probe.tiles
         if C == R:
             sub = st
         else:
@@ -306,9 +308,10 @@ class TraceUnit:
         else:
             lane_map.scatter(new, lane, self.rows, live)
         self.live[C] = live
-        # the probe calls without fills that the step made (a capture's are
-        # the ones its replays launch)
-        self.unfilled[C] = sp.step_probe.unfilled - before
+        # the probe calls without fills and the table tiles the step's probe
+        # calls staged (a capture's are the ones its replays launch)
+        self.unfilled[C] = sp.step_probe.unfilled - before[0]
+        self.tiles[C] = sp.step_probe.tiles - before[1]
 
     def _tail(self):
         self.color = tr.shade_misses(self.frame.scene, self.frame.textures, self.st)
@@ -377,11 +380,13 @@ class TraceUnit:
         each one's stage copied out, the final state copied out); the step
         after the last live one changed nothing, so it has no VJP to run.
         With the tracer on, each step adds its live lanes, capacity and 1
-        to the counters ``lanes``, ``rows`` and ``steps`` (and 1 to
-        ``compacted`` at a capacity below R, and the probe launches without
-        fills that its capacity's step made when it ran or was captured to
-        ``unfilled``): the count it reads one step late is the lanes
-        entering the step before."""
+        to the counters ``lanes``, ``rows`` and ``steps``, its live lanes
+        times the scene's slots to ``pairs`` (and 1 to ``compacted`` at a
+        capacity below R; the probe launches without fills and the table
+        tiles its probe launches staged, as its capacity's step made them
+        when it ran or was captured, to ``unfilled`` and ``tiles``): the
+        count it reads one step late is the lanes entering the step
+        before."""
         traced = profiling.enabled()
         with span("txr.head"):
             self.ro.copy_(ro)
@@ -394,6 +399,7 @@ class TraceUnit:
             if traced and k != 1:
                 # the lanes entering step k − 1 (k = 0: every ray of step 0)
                 count("lanes", live)
+                count("pairs", live * self.n_slots)
             if not live:
                 del saves[-1:]
                 break
@@ -411,6 +417,8 @@ class TraceUnit:
                     count("compacted", 1)
                 if self.unfilled.get(C):
                     count("unfilled", self.unfilled[C])
+                if self.tiles.get(C):
+                    count("tiles", self.tiles[C])
             if self.train:
                 saves.append((C, self.stage[C].buf.clone()))
         with span("txr.tail"):
@@ -418,7 +426,9 @@ class TraceUnit:
             color.copy_(self.color)
         if traced and len(self.steps_run) == steps > 1:
             # the loop stopped at max_steps: the last step's lanes are unread
-            count("lanes", self._live_after(steps - 2, "txr.wait_last"))
+            live = self._live_after(steps - 2, "txr.wait_last")
+            count("lanes", live)
+            count("pairs", live * self.n_slots)
         if self.train:
             return saves, self.state.buf.clone()
 

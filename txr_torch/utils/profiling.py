@@ -49,7 +49,13 @@ steps and scatters; ``steps``, 1; ``compacted``, 1 at a capacity below
 the unit's rays (the lane map's kernels ran); ``unfilled``, its probe
 launches that stored no fill rows (``kernels.step_probe``'s ``fill``
 clear, tallied as the step ran or was captured: 2 a forward step, 1
-without the glossy pass, 1 a train step); and ``captures``, 1 per
+without the glossy pass, 1 a train step); ``tiles``, the tiles of the
+scene table its probe launches staged, summed over them (tallied so: 1 a
+launch when the table is staged whole, and on the CPU, whose
+twin does not tile; more where the kernel sweeps a large table in tiles,
+``kernels.step_probe.launch``); ``pairs``, its live lanes entering times
+the scene's slots, the (ray, slot) tests of its nearest-hit sweep, not of
+the glossy probe's sweep or the shadow probes; and ``captures``, 1 per
 capture.
 ``100 · Σ lanes / Σ rows`` is the share of stepped rows that were live.
 Counters of the pose (``apps.demo.update_scene``), which belong to the
