@@ -36,7 +36,9 @@ Phases, one line each:
                counted from zero around it, vs the twin; nearest-hit on
                the primary rays and shadow-sweep on their shadow rays, with
                and without the need mask, vs the twins; the probe's time
-               and bound, a row ``step_probe_tiled`` of the last line
+               and bound, its registers and blocks an SM, and the share of
+               its (warp, sphere) pairs in which some lane's line crosses
+               the sphere, a row ``step_probe_tiled`` of the last line
   4. gate      96×54 demo render on the probe route vs the f64 oracle image
                (txr/ref/gate_oracle.npz), golden criterion
   5. gate-off  the same render on the eager route (fused="off"), through the
@@ -1068,6 +1070,49 @@ def in_chunks(fn, n, *lanes, chunk=BALLS_CHUNK):
     return tuple(None if p[0] is None else torch.cat(p, dim=-1) for p in zip(*parts))
 
 
+def crossing_shares(ro, rd, spheres, chunk=1 << 13):
+    """The share of (warp, sphere) pairs of a probe launch on every lane of
+    ``ro``, ``rd`` in which some lane's line crosses the sphere (h = b² − c
+    ≥ 0, as ``txr_common.cuh: sphere_tile_line`` computes it, one float32
+    operation at a time): the pairs whose warp takes the root, where every
+    other pair's warp issues nothing after h's sign.  With every lane live
+    a warp is 32 neighbouring lanes.  ``spheres``: the table's sphere records
+    [S, 9].  → (that share, the share of (lane, sphere) pairs that cross)."""
+    import torch
+
+    c = spheres[:, 0:3].float()
+    r2 = spheres[:, 3].float() * spheres[:, 3].float()
+    n, S = ro.shape[0], c.shape[0]
+    warps = lanes = 0
+    for a in range(0, n, chunk):
+        o, d = ro[a:a + chunk], rd[a:a + chunk]
+        ocx, ocy, ocz = o[:, 0:1] - c[:, 0], o[:, 1:2] - c[:, 1], o[:, 2:3] - c[:, 2]
+        b = ocx * d[:, 0:1] + ocy * d[:, 1:2] + ocz * d[:, 2:3]
+        cc = ocx * ocx + ocy * ocy + ocz * ocz - r2
+        x = (b * b - cc) >= 0.0
+        lanes += int(x.sum())
+        x = torch.cat([x, x.new_zeros((-x.shape[0]) % 32, S)])
+        warps += int(x.view(-1, 32, S).any(1).sum())
+    return warps / (-(-n // 32) * S), lanes / (n * S)
+
+
+def probe_occupancy(hdr):
+    """The registers a thread and the blocks an SM of the probe kernel that a
+    launch on a table with header ``hdr`` takes, at its planned shared
+    memory (``step_probe.cu: txr_step_probe_occupancy``)."""
+    import ctypes
+
+    from txr_torch.kernels import build
+
+    fn = build.load("step_probe", "txr_step_probe_occupancy", [ctypes.c_void_p] * 3)
+    h = (ctypes.c_int * len(hdr))(*hdr)
+    regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    rc = fn(ctypes.addressof(h), ctypes.addressof(regs), ctypes.addressof(blocks))
+    if rc != 0:
+        fail(f"txr_step_probe_occupancy failed: cudaError {rc}")
+    return regs.value, blocks.value
+
+
 def balls_phase(dev):
     """Phase 3a: the SPD ``balls`` table (``rtbench/configs/spd-balls-1080p.json``:
     7,381 spheres, a floor, 3 point lights; its slot records far larger
@@ -1085,8 +1130,10 @@ def balls_phase(dev):
     (``compare_nearest``, ``compare_shadow``); then the probe on the
     primary rays without fills, as the path runs it, timed through its
     wrapper (CUDA events) and alone (device time), beside its twin and its
-    least time by ``utils/flops.py`` → the ``kernels`` row
-    ``step_probe_tiled``; fails on a disagreement."""
+    least time by ``utils/flops.py``, its registers and blocks an SM
+    (``probe_occupancy``) and its (warp, sphere) pairs' crossing share
+    (``crossing_shares``) → the ``kernels`` row ``step_probe_tiled``; fails
+    on a disagreement."""
     import torch
 
     from rtbench import scenedata, system
@@ -1095,7 +1142,7 @@ def balls_phase(dev):
     from txr_torch.kernels import nearest_hit as nh
     from txr_torch.kernels import shadow_sweep as ss
     from txr_torch.kernels import step_probe as sp
-    from txr_torch.kernels.scene_table import pack_scene, set_flags
+    from txr_torch.kernels.scene_table import pack_scene, sections, set_flags
     from txr_torch.render import fused as rfused
     from txr_torch.render.raygen import primary_rays
     from txr_torch.render.render import clear_jit_cache, render_jit
@@ -1225,16 +1272,22 @@ def balls_phase(dev):
     plain_ms = cuda_ms(base, 1)
     bound_ms, bound_by = flops.bound_ms(*needed), flops.bound_by(*needed)
     full_ms, full_by = flops.bound_ms(*full), flops.bound_by(*full)
+    regs, blocks = probe_occupancy(hdr_n)
+    _, sec = sections(buf, hdr0)
+    warp_x, lane_x = crossing_shares(ro, rd, torch.as_tensor(sec["spheres"], device=dev))
     row = dict(name="step_probe_tiled", route="cuda", source="txr_torch/kernels/csrc/step_probe.cu",
                replaces="txr/kernels/pallas_step.py:652", table=BALLS, launches=1,
                tiles=got["tiles"], max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bound_full_ms=full_ms,
-               bound_full_by=full_by, share=bound_ms / dms)
+               bound_full_by=full_by, share=bound_ms / dms, registers=regs, blocks_per_sm=blocks,
+               warp_crossing_share=warp_x, lane_crossing_share=lane_x)
     log(f"kernel step_probe_tiled: {ms:.3f} ms per launch at {n} primary rays of {BALLS} "
         f"({got['tiles']} tiles a sweep), through its wrapper by CUDA events (device "
         f"{dms:.3f} ms, twin {plain_ms:.1f} ms), bound {bound_ms:.3f} ms by {bound_by} "
         f"({needed[0] / 1e9:.1f} GFLOP, {needed[1] / 1e6:.0f} MB), {full_ms:.3f} ms by {full_by} "
-        f"at full work")
+        f"at full work; {regs} registers, {blocks} blocks an SM; some lane's line crosses the "
+        f"sphere in {100 * warp_x:.3f} % of the (warp, sphere) pairs ({100 * lane_x:.4f} % of "
+        f"the (lane, sphere) pairs)")
     return row
 
 

@@ -19,7 +19,13 @@ On the card (marker ``card``; no JAX, so the file runs alone there:
   a few records, one tile of it all), the step probe writes the whole-table
   launch's rows bit for bit, every element, over rows set to NaN
   beforehand, with and without fill rows, both shading variants, with a
-  lane mask; the nearest-hit and shadow-sweep kernels their outputs.
+  lane mask; the nearest-hit and shadow-sweep kernels their outputs;
+* the tiles stage each sphere as one (centre, r²) record
+  (``txr_common.cuh: tile_layout``): forced tiles that cut the sphere
+  section mid-way and mid-record, that hold a single sphere or none, on
+  rays that start inside the demo's hollow spheres, and a shadow sweep
+  whose only occluder is the one sphere of the last tile, give the
+  whole-table launch's outputs bit for bit.
 """
 
 import ctypes
@@ -182,6 +188,31 @@ def _bits(v):
     return v.contiguous().view(torch.int32)
 
 
+def _tile_layout(hdr):
+    """The kernels' tile layout (``csrc/txr_common.cuh: tile_layout``):
+    each slot type's first float, and the slot records' length."""
+    o_su, o_ld = hdr[12], hdr[17]
+    sp = (6 * hdr[0] + 3) & ~3
+    su = sp + 4 * hdr[1]
+    return [0, sp, su] + [su + hdr[10 + j] - o_su for j in range(3, 7)], su + o_ld - o_su
+
+
+def _all_kernels(buf, hdr, ro, rd, dist, pix, alive, tile):
+    """The probe (into rows set to NaN), nearest-hit and shadow-sweep
+    launches with ``tile`` → (their outputs, floats as int32 bits; the
+    probe's tiles a sweep)."""
+    from txr_torch.kernels import nearest_hit as nh
+    from txr_torch.kernels import shadow_sweep as ss
+
+    f, i, n = _probe_into_nan(buf, hdr, ro, rd, pix, alive, tile)
+    t, s = nh.launch(buf, hdr, ro, rd, alive, tile=tile)
+    k = ss.launch(buf, hdr, ro, rd, dist, alive, tile=tile)
+    out = [_bits(f), i, _bits(t), s, _bits(k[0])]
+    if k[1] is not None:
+        out += [k[1], _bits(k[2])]
+    return out, n
+
+
 @pytest.mark.card
 @pytest.mark.parametrize("fill", [True, False])
 @pytest.mark.parametrize("shade_flipped", [True, False])
@@ -193,7 +224,7 @@ def test_tiled_probe_is_the_whole_tables(card, fill, shade_flipped):
     assert n0 == 1                        # the demo's table fits a block
     hit = alive & (f0[0] < 1e30)
     assert int(hit.sum()) > 10000 and int((alive & ~hit).sum()) > 10000
-    n_rec = hdr[17]
+    _, n_rec = _tile_layout(hdr)
     for tile in (5, 16, 64, n_rec):
         f, i, n = _probe_into_nan(buf, hdr, ro, rd, pix, alive, tile)
         assert n == -(-n_rec // tile)
@@ -211,9 +242,100 @@ def test_tiled_eager_kernels_are_the_whole_tables(card):
     t0, s0 = nh.launch(buf, hdr, ro, rd, alive)
     k0 = ss.launch(buf, hdr, ro, rd, dist, alive)
     assert int((t0 < 1e30).sum()) > 10000 and int((k0[0] > 0).sum()) > 1000
-    for tile in (5, 16, 64, hdr[17]):
+    for tile in (5, 16, 64, _tile_layout(hdr)[1]):
         t, s = nh.launch(buf, hdr, ro, rd, alive, tile=tile)
         assert torch.equal(_bits(t), _bits(t0)) and torch.equal(s, s0), tile
         k = ss.launch(buf, hdr, ro, rd, dist, alive, tile=tile)
         assert torch.equal(k[0], k0[0]), tile
         assert torch.equal(k[1], k0[1]) and torch.equal(_bits(k[2]), _bits(k0[2])), tile
+
+
+@pytest.mark.card
+def test_packed_sphere_tiles_are_the_whole_tables(card):
+    """Tiles of the tile layout, whose spheres are (centre, ±r²) records,
+    against the whole-table launch, on the demo's rays and rays from inside
+    its hollow spheres (the far root, taken only where the line meets the
+    sphere)."""
+    buf, hdr, ro, rd, alive = _demo_rays(card)
+    _, sec = scene_table.sections(buf, hdr)
+    spheres = torch.as_tensor(sec["spheres"].copy(), device=card)
+    hollow = spheres[spheres[:, 4] != 0]
+    assert hollow.shape[0] >= 1
+    g = torch.Generator(device=card).manual_seed(5)
+    m = 8192
+    pick = torch.randint(0, hollow.shape[0], (m,), generator=g, device=card)
+    d = torch.nn.functional.normalize(torch.randn(m, 3, generator=g, device=card), dim=-1)
+    o = hollow[pick, 0:3] + d.roll(1, 0) * hollow[pick, 3:4] * 0.9
+    ro = torch.cat([ro, o]).contiguous()
+    rd = torch.cat([rd, d]).contiguous()
+    alive = torch.cat([alive, torch.ones(m, dtype=torch.bool, device=card)]).contiguous()
+    dist = torch.rand(ro.shape[0], generator=g, device=card) * 40.0
+    pix = 1.0 / 1080.0
+    off, n_rec = _tile_layout(hdr)
+    s0, s1 = off[1], off[2]                 # the sphere section: 4 floats a sphere
+    assert s1 - s0 == 4 * spheres.shape[0] and s0 % 4 == 0
+    want, n0 = _all_kernels(buf, hdr, ro, rd, dist, pix, alive, 0)
+    assert n0 == 1
+    # the inner lanes hit a hollow sphere from inside, at its far root
+    slot = want[3][-m:]
+    inner = torch.isin(slot, torch.nonzero(spheres[:, 4] != 0).flatten().to(slot) + hdr[0])
+    assert int(inner.sum()) > m // 2
+    cases = {
+        "one sphere a tile": 4,             # then tiles of no sphere after the section
+        "mid-record cuts": s0 + 10,         # boundaries inside a sphere's record
+        "mid-section cut": s0 + 4 * (spheres.shape[0] // 2) + 2,
+        "the section alone": s1 - s0,
+        "one float a tile": 1,              # most tiles hold no record at all
+    }
+    for what, tile in cases.items():
+        got, n = _all_kernels(buf, hdr, ro, rd, dist, pix, alive, tile)
+        assert n == -(-n_rec // tile), what
+        for j, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), (what, j)
+
+
+@pytest.mark.card
+def test_occluder_in_the_last_tile(card):
+    """A shadow sweep whose only occluder is the one sphere of the last
+    tile: rays from the floor under it toward the light, and the probe's
+    shading pairs of primary rays that hit that floor."""
+    from txr_torch.kernels import shadow_sweep as ss
+
+    n_sp = 64
+    b = SceneBuilder(camera_pos=(0.0, 0.5, -8.0))
+    b.add_light_point((0.0, 10.0, 0.0), (1.0, 1.0, 1.0), 1.0)
+    mat = b.material((0.5, 0.5, 0.5))
+    for k in range(n_sp - 1):                # far off to the side: no shadow on the floor
+        b.add_sphere((30.0 + 0.5 * k, 5.0, 30.0), 0.2, mat, hollow=bool(k % 5 == 0))
+    b.add_sphere((0.0, 2.0, 0.0), 1.0, mat)  # the occluder, last
+    b.add_box((0.0, -1.0, 0.0), (10.0, 0.1, 10.0), mat)
+    buf, hdr = scene_table.pack_scene(b.build().to(card), None)
+    off, n_rec = _tile_layout(hdr)
+    tile = off[1] + 4 * (n_sp - 1)          # the last tile starts at the occluder
+    assert -(-n_rec // tile) == 2
+    g = torch.Generator(device=card).manual_seed(7)
+    m = 1 << 15
+    at = (torch.rand(m, 3, generator=g, device=card) - 0.5) * 6.0
+    at[:, 1] = -0.9 + 1e-3                  # just above the floor's top
+    light = torch.tensor([0.0, 10.0, 0.0], device=card)
+    to = light - at
+    dist = to.norm(dim=-1).contiguous()
+    sd = (to / dist[:, None]).contiguous()
+    want = ss.launch(buf, hdr, at.contiguous(), sd, dist)
+    got = ss.launch(buf, hdr, at.contiguous(), sd, dist, tile=tile)
+    twin = ss.shadow_sweep_ref(buf, hdr, at.contiguous(), sd, dist)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[0], twin[0])
+    assert m // 50 < int(got[0].sum()) < m - m // 50
+    # primary rays from beside the occluder down to the same floor
+    ro = torch.cat([(torch.rand(m, 1, generator=g, device=card) - 0.5) * 6.0,
+                    torch.full((m, 1), 0.5, device=card), torch.full((m, 1), -8.0, device=card)],
+                   dim=1)
+    rd = torch.nn.functional.normalize(at - ro, dim=-1).contiguous()
+    ro = ro.contiguous()
+    f0, i0, n0 = _probe_into_nan(buf, hdr, ro, rd, 0.0, None, 0)
+    f, i, n = _probe_into_nan(buf, hdr, ro, rd, 0.0, None, tile)
+    assert (n0, n) == (1, 2)
+    assert torch.equal(_bits(f), _bits(f0)) and torch.equal(i, i0)
+    box = i0[0] == n_sp                     # the floor's slot, after the spheres
+    solid = f0[23 + 2]                      # the light's solid row
+    assert int(box.sum()) > m // 2 and m // 50 < int((solid[box] > 0).sum()) < int(box.sum())

@@ -29,8 +29,9 @@
 // The table is staged in shared memory once per block, so every primitive
 // parameter is a broadcast read; a table too large for a block's room at full
 // occupancy is swept in tiles of its slot records that every thread of the
-// block stages in turn, in slot order with the same strict '<'
-// (txr_common.cuh plan_stage, nearest_span): nearest_hit_kernel<true>.  A
+// block stages in turn, in slot order with the same strict '<', each sphere
+// staged as one 16-byte (centre, r^2) record (txr_common.cuh plan_stage,
+// nearest_span): nearest_hit_kernel<true>.  A
 // type's loop unrolls only up to UNROLL_MAX records, so a topology of
 // thousands of spheres still builds.  Built with -fmad=false so it rounds as
 // its twin does.
@@ -103,15 +104,15 @@ __device__ __forceinline__ void sweep(const float* sm, f3 o, f3 d, bool one_side
   }
 }
 
-// kTiled: the table is swept in tiles of `tile` floats (txr_common.cuh
-// Span, reading m); otherwise staged whole, and `tile` is unused.
+// kTiled: the table is swept in tiles (txr_common.cuh Tiles, Span, reading
+// m); otherwise staged whole, and `tl` is unused.
 template <bool kTiled>
 __global__ void __launch_bounds__(kThreads)
-    nearest_hit_kernel(Meta m, const float* __restrict__ buf, int tile,
+    nearest_hit_kernel(Meta m, const float* __restrict__ buf, Tiles tl,
                        const float* __restrict__ ro, const float* __restrict__ rd,
                        const unsigned char* __restrict__ alive, float* __restrict__ tout,
                        int* __restrict__ sout, long long n, bool one_side) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   __shared__ int s_live[kThreads], s_wc[kWarps];
   const int tid = threadIdx.x;
   const long long base = (long long)blockIdx.x * kThreads;
@@ -140,10 +141,10 @@ __global__ void __launch_bounds__(kThreads)
       o = {ro[3 * ray], ro[3 * ray + 1], ro[3 * ray + 2]};
       d = {rd[3 * ray], rd[3 * ray + 1], rd[3 * ray + 2]};
     }
-    for (int a = 0; a < NTAB; a += tile) {
-      const int b = min(a + tile, NTAB);
-      stage_tile(m, buf, sm, a, b);
-      if (mine) nearest_span(m, tile_span(m, a, b), sm, o, d, tmin, slot);
+    for (int a = 0; a < tl.lay.n; a += tl.tile) {
+      const int b = min(a + tl.tile, tl.lay.n);
+      stage_tile(m, tl.lay, buf, sm, a, b);
+      if (mine) nearest_span<true>(m, tile_span(m, tl.lay, a, b), sm, o, d, tmin, slot);
     }
     if (!mine) return;
   }
@@ -175,12 +176,12 @@ extern "C" int txr_nearest_hit(const int* hdr, const float* buf, const float* ro
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
   const cudaStream_t s = (cudaStream_t)stream;
   const bool one_side = (hdr[9] & FLAG_ONE_SIDE) != 0;
-  if (st.tile == 0) {
-    nearest_hit_kernel<false><<<grid, kThreads, st.smem, s>>>(m, buf, 0, ro, rd, alive, tout,
+  if (st.t.tile == 0) {
+    nearest_hit_kernel<false><<<grid, kThreads, st.smem, s>>>(m, buf, st.t, ro, rd, alive, tout,
                                                               sout, n, one_side);
   } else {
-    nearest_hit_kernel<true><<<grid, kThreads, st.smem, s>>>(m, buf, st.tile, ro, rd, alive,
-                                                             tout, sout, n, one_side);
+    nearest_hit_kernel<true><<<grid, kThreads, st.smem, s>>>(m, buf, st.t, ro, rd, alive, tout,
+                                                             sout, n, one_side);
   }
   return (int)cudaGetLastError();
 }

@@ -20,8 +20,9 @@
 // lines that cross its inflated bounding sphere (txr_common.cuh).  Every
 // ring's (hit, u, v) is still an output, so rings are always tested.  The
 // table is staged in shared memory once per block, whole when it fits a
-// block's room at full occupancy, else in tiles of its slot records that every thread of the block stages in
-// turn (txr_common.cuh plan_stage): shadow_sweep_kernel<true>.  Built with
+// block's room at full occupancy, else in tiles of its slot records that
+// every thread of the block stages in turn, each sphere as one 16-byte
+// (centre, r^2) record (txr_common.cuh plan_stage): shadow_sweep_kernel<true>.  Built with
 // -fmad=false so it rounds as its twin does.
 
 #include <cuda_runtime.h>
@@ -33,15 +34,15 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
-// kTiled: the table is swept in tiles of `tile` floats (txr_common.cuh
-// Span); otherwise staged whole, and `tile` is unused.
+// kTiled: the table is swept in tiles (txr_common.cuh Tiles, Span);
+// otherwise staged whole, and `tl` is unused.
 template <bool kTiled>
 __global__ void __launch_bounds__(kThreads)
-    shadow_sweep_kernel(txr::Meta m, const float* __restrict__ buf, int tile,
+    shadow_sweep_kernel(txr::Meta m, const float* __restrict__ buf, txr::Tiles tl,
                         const float* __restrict__ ro, const float* __restrict__ rd,
                         const float* __restrict__ dist, const unsigned char* __restrict__ need,
                         float* __restrict__ solid, float* __restrict__ ring, long long n) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   __shared__ int s_list[kThreads], s_wc[kWarps];
   const int tid = threadIdx.x;
   const long long base = (long long)blockIdx.x * kThreads;
@@ -67,7 +68,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   // each ring's (hit, u, v), for the rings of one span
   auto rings = [&](const txr::Span& sp) {
-    const float* RI = sm - sp.a + m.o_ri;
+    const float* RI = sm - sp.a + sp.lay.o[5];
     for (int k = sp.lo[5]; k < sp.hi[5]; ++k) {
       float u, v;
       bool h = txr::ring_shadow(RI + txr::RRI * k, o, d, dmax, u, v);
@@ -82,12 +83,12 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
   bool occ = false;
-  for (int a = 0; a < m.o_ld; a += tile) {
-    const int b = min(a + tile, m.o_ld);
-    txr::stage_tile(m, buf, sm, a, b);
+  for (int a = 0; a < tl.lay.n; a += tl.tile) {
+    const int b = min(a + tl.tile, tl.lay.n);
+    txr::stage_tile(m, tl.lay, buf, sm, a, b);
     if (mine) {
-      const txr::Span sp = txr::tile_span(m, a, b);
-      occ = occ || txr::occluded_span(m, sp, sm, o, d, dmax);
+      const txr::Span sp = txr::tile_span(m, tl.lay, a, b);
+      occ = occ || txr::occluded_span<true>(m, sp, sm, o, d, dmax);
       rings(sp);
     }
   }
@@ -110,12 +111,12 @@ extern "C" int txr_shadow_sweep(const int* hdr, const float* buf, const float* r
   if (n <= 0) return 0;
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (st.tile == 0) {
-    shadow_sweep_kernel<false><<<grid, kThreads, st.smem, s>>>(m, buf, 0, ro, rd, dist, need,
+  if (st.t.tile == 0) {
+    shadow_sweep_kernel<false><<<grid, kThreads, st.smem, s>>>(m, buf, st.t, ro, rd, dist, need,
                                                                solid, ring, n);
   } else {
-    shadow_sweep_kernel<true><<<grid, kThreads, st.smem, s>>>(m, buf, st.tile, ro, rd, dist,
-                                                              need, solid, ring, n);
+    shadow_sweep_kernel<true><<<grid, kThreads, st.smem, s>>>(m, buf, st.t, ro, rd, dist, need,
+                                                              solid, ring, n);
   }
   return (int)cudaGetLastError();
 }

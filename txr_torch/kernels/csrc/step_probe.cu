@@ -54,7 +54,11 @@
 // a few hundred floats).  A table that does not (thousands of primitives) is
 // swept in tiles of its slot records, in slot order with the
 // same strict '<', so the winner and its ties are the whole sweep's
-// (txr_common.cuh plan_stage, Span): step_probe_kernel<true>.  Then every
+// (txr_common.cuh plan_stage, Span): step_probe_kernel<true>.  Its tiles are
+// staged with each sphere as one 16-byte (centre, r^2) record, and a pair
+// takes the root only where the line meets the sphere (sphere_tile_line):
+// such a sweep is bound by the instructions a (ray, sphere) pair issues,
+// nearly every pair a miss.  Then every
 // warp of a block stays for the stages and barriers; the sweep streams the
 // tiles once, the shading pairs once a round of kThreads pairs, and the
 // winner's record, material row and texture slot are read from global
@@ -159,7 +163,7 @@ __device__ __forceinline__ Pair begin_pair(const Meta& m, const float* tab, int 
 // shadows).
 __device__ __forceinline__ void ring_rows(const Meta& m, const txr::Span& sp, const float* sm,
                                           const Pair& p, long long N, bool shadows) {
-  const float* RI = sm - sp.a + m.o_ri;
+  const float* RI = sm - sp.a + sp.lay.o[5];
   for (int k = sp.lo[5]; k < sp.hi[5]; ++k) {
     float u = 0.0f, v = 0.0f;
     bool h = shadows && txr::ring_shadow(RI + RRI * k, p.so, p.ldir, p.dist, u, v);
@@ -170,15 +174,15 @@ __device__ __forceinline__ void ring_rows(const Meta& m, const txr::Span& sp, co
   }
 }
 
-// kTiled: the table is swept in tiles of `tile` floats (txr_common.cuh
-// Span); otherwise staged whole, and `tile` is unused.
+// kTiled: the table is swept in tiles (txr_common.cuh Tiles, Span);
+// otherwise staged whole, and `tl` is unused.
 template <bool kTiled>
 __global__ void __launch_bounds__(kThreads)
-    step_probe_kernel(Meta m, const float* __restrict__ buf, int tile,
+    step_probe_kernel(Meta m, const float* __restrict__ buf, txr::Tiles tl,
                       const float* __restrict__ ro, const float* __restrict__ rd,
                       const unsigned char* __restrict__ alive, float* __restrict__ fout,
                       int* __restrict__ iout, long long n) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   __shared__ int s_live[kThreads], s_shade[kThreads], s_wc1[kWarps], s_wc2[kWarps];
   // what a shading lane needs, by its place in the live list: the shadow
   // origin, the shading normal, the ray direction and the specular exponent
@@ -231,10 +235,11 @@ __global__ void __launch_bounds__(kThreads)
   float tmin = txr::INF_T;
   int slot = 0;
   if (kTiled) {
-    for (int a = 0; a < m.o_ld; a += tile) {
-      const int b = min(a + tile, m.o_ld);
-      txr::stage_tile(m, buf, sm, a, b);
-      if (mine) txr::nearest_span(m, txr::tile_span(m, a, b), sm, o, d, tmin, slot);
+    for (int a = 0; a < tl.lay.n; a += tl.tile) {
+      const int b = min(a + tl.tile, tl.lay.n);
+      txr::stage_tile(m, tl.lay, buf, sm, a, b);
+      if (mine)
+        txr::nearest_span<true>(m, txr::tile_span(m, tl.lay, a, b), sm, o, d, tmin, slot);
     }
   } else if (mine) {
     txr::nearest_sweep(m, sm, o, d, tmin, slot);
@@ -440,12 +445,12 @@ __global__ void __launch_bounds__(kThreads)
     if (pair) p = begin_pair(m, buf, q, n_shade, s_shade, s_live, s_in, col, N);
     bool occ = false;
     if (shadows) {
-      for (int a = 0; a < m.o_ld; a += tile) {
-        const int b = min(a + tile, m.o_ld);
-        txr::stage_tile(m, buf, sm, a, b);
+      for (int a = 0; a < tl.lay.n; a += tl.tile) {
+        const int b = min(a + tl.tile, tl.lay.n);
+        txr::stage_tile(m, tl.lay, buf, sm, a, b);
         if (pair) {
-          const txr::Span sp = txr::tile_span(m, a, b);
-          occ = occ || txr::occluded_span(m, sp, sm, p.so, p.ldir, p.dist);
+          const txr::Span sp = txr::tile_span(m, tl.lay, a, b);
+          occ = occ || txr::occluded_span<true>(m, sp, sm, p.so, p.ldir, p.dist);
           ring_rows(m, sp, sm, p, N, true);
         }
       }
@@ -460,8 +465,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // hdr: the table header (txr::Meta's integer fields in order), read on the
 // host; alive: uint8 [n] or null for every lane; tile: 0 to stage the table
-// as txr::plan_stage finds best, > 0 to force tiles of that many floats
-// (tests); n_tiles: where the number of stages a block makes a sweep is
+// as txr::plan_stage finds best, > 0 to force tiles of that many floats of
+// the tile layout (tests); n_tiles: where the number of stages a block makes a sweep is
 // written (1: the whole table), or null.  Returns cudaGetLastError() after
 // the launch; the caller raises on non-zero.
 extern "C" int txr_step_probe(const int* hdr, const float* buf, float pix_angle, const float* ro,
@@ -476,12 +481,29 @@ extern "C" int txr_step_probe(const int* hdr, const float* buf, float pix_angle,
   if (n <= 0) return 0;
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (st.tile == 0) {
-    step_probe_kernel<false><<<grid, kThreads, st.smem, s>>>(m, buf, 0, ro, rd, alive, fout,
+  if (st.t.tile == 0) {
+    step_probe_kernel<false><<<grid, kThreads, st.smem, s>>>(m, buf, st.t, ro, rd, alive, fout,
                                                              iout, n);
   } else {
-    step_probe_kernel<true><<<grid, kThreads, st.smem, s>>>(m, buf, st.tile, ro, rd, alive,
-                                                            fout, iout, n);
+    step_probe_kernel<true><<<grid, kThreads, st.smem, s>>>(m, buf, st.t, ro, rd, alive, fout,
+                                                            iout, n);
   }
   return (int)cudaGetLastError();
+}
+
+// The kernel that a launch on a table with header hdr takes (plan_stage):
+// its registers a thread and its blocks an SM at the planned shared memory.
+// Returns a CUDA error, or 0.
+extern "C" int txr_step_probe_occupancy(const int* hdr, int* regs, int* blocks) {
+  const Meta m = txr::make_meta(hdr, 0.0f);
+  txr::Stage st;
+  if (int e = txr::plan_stage(m, step_probe_kernel<false>, step_probe_kernel<true>, kThreads,
+                              m.n_buf, 0, st))
+    return e;
+  const void* k = st.t.tile == 0 ? (const void*)step_probe_kernel<false>
+                                 : (const void*)step_probe_kernel<true>;
+  cudaFuncAttributes fa;
+  if (int e = (int)cudaFuncGetAttributes(&fa, k)) return e;
+  *regs = fa.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads, st.smem);
 }

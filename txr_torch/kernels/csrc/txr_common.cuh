@@ -336,78 +336,163 @@ __device__ __forceinline__ void stage_table(const Meta& m, const float* __restri
 }
 
 // A table too large for a block's shared memory is swept in tiles of its
-// slot records, floats [0, o_ld) in slot order (planes ... point-light
-// bulbs).  A tile takes the records that start in floats [a, b) and is
-// staged from float a with the RSU - 1 floats after b, so each record lies
-// whole in the stage of the tile it starts in.  Span: that tile's records,
-// by slot type in header order, [lo, hi) of each type's records, read at
-// sm + offset - a.  The whole table is one span from float 0.
+// slot records (planes ... point-light bulbs), staged in the tile layout:
+// the records in slot order as the table packs them, but each sphere as one
+// 16-byte record (centre, r^2) from a 16-byte boundary, its sign bit set
+// for a hollow sphere.  A pair then reads its sphere with one broadcast
+// load, r^2 is the same float32 product the table's radius gives, and a
+// tile holds 4 floats a sphere where the table has 9.  A tile takes the
+// records that start in floats [a, b) of the layout and is staged from
+// float a & ~3 (16-byte aligned) with the TILE_PAD floats after b, so each
+// record lies whole in the stage of the tile it starts in.  Layout: each
+// type's first float, and the records' length.  Span: where a sweep finds
+// its records (the stage's first float a and the layout) and which: by slot
+// type in header order, [lo, hi) of each type's records, read at
+// sm + offset - a.  The whole table is one span from float 0 of the table's
+// own layout.
 constexpr int N_SLOT_TYPES = 7;
 constexpr int TILE_PAD = RSU - 1;
+constexpr int RSP_TILE = 4;  // a sphere's record in the tile layout
+
+struct Layout {
+  int o[N_SLOT_TYPES];
+  int n;
+};
 
 struct Span {
   int a;
   int lo[N_SLOT_TYPES], hi[N_SLOT_TYPES];
+  Layout lay;
 };
 
-__device__ __forceinline__ Span whole_span(const Meta& m) {
-  return Span{0, {0, 0, 0, 0, 0, 0, 0}, {m.n_pl, m.n_sp, m.n_su, m.n_bx, m.n_to, m.n_ri, m.n_lp}};
+__host__ __device__ inline Layout table_layout(const Meta& m) {
+  return Layout{{m.o_pl, m.o_sp, m.o_su, m.o_bx, m.o_to, m.o_ri, m.o_lp}, m.o_ld};
 }
 
-__device__ __forceinline__ Span tile_span(const Meta& m, int a, int b) {
+__host__ __device__ inline Layout tile_layout(const Meta& m) {
+  Layout t;
+  const int tab[N_SLOT_TYPES] = {m.o_pl, m.o_sp, m.o_su, m.o_bx, m.o_to, m.o_ri, m.o_lp};
+  t.o[0] = 0;
+  t.o[1] = (RPL * m.n_pl + 3) & ~3;
+  t.o[2] = t.o[1] + RSP_TILE * m.n_sp;
+  for (int j = 3; j < N_SLOT_TYPES; ++j) t.o[j] = t.o[2] + tab[j] - m.o_su;
+  t.n = t.o[2] + m.o_ld - m.o_su;
+  return t;
+}
+
+__device__ __forceinline__ Span whole_span(const Meta& m) {
+  return Span{0,
+              {0, 0, 0, 0, 0, 0, 0},
+              {m.n_pl, m.n_sp, m.n_su, m.n_bx, m.n_to, m.n_ri, m.n_lp},
+              table_layout(m)};
+}
+
+__device__ __forceinline__ Span tile_span(const Meta& m, const Layout& lay, int a, int b) {
   const int n[N_SLOT_TYPES] = {m.n_pl, m.n_sp, m.n_su, m.n_bx, m.n_to, m.n_ri, m.n_lp};
-  const int o[N_SLOT_TYPES] = {m.o_pl, m.o_sp, m.o_su, m.o_bx, m.o_to, m.o_ri, m.o_lp};
-  const int w[N_SLOT_TYPES] = {RPL, RSP, RSU, RBX, RTO, RRI, RLP};
+  const int w[N_SLOT_TYPES] = {RPL, RSP_TILE, RSU, RBX, RTO, RRI, RLP};
   // the records of a type that start before float x
   auto before = [&](int j, int x) {
-    return x <= o[j] ? 0 : min(n[j], (x - o[j] + w[j] - 1) / w[j]);
+    return x <= lay.o[j] ? 0 : min(n[j], (x - lay.o[j] + w[j] - 1) / w[j]);
   };
   Span s;
-  s.a = a;
+  s.a = a & ~3;
+  s.lay = lay;
 #pragma unroll
   for (int j = 0; j < N_SLOT_TYPES; ++j) s.lo[j] = before(j, a), s.hi[j] = before(j, b);
   return s;
 }
 
-// Stage the tile of floats [a, b) of the slot records: every thread of the
+// Float k of the tile layout, read from the packed table.
+__device__ __forceinline__ float tile_float(const Meta& m, const Layout& lay,
+                                            const float* __restrict__ buf, int k) {
+  if (k >= lay.o[2]) return buf[m.o_su + k - lay.o[2]];     // surfaces ... bulbs
+  if (k < lay.o[1]) return k < RPL * m.n_pl ? buf[m.o_pl + k] : 0.0f;  // planes, padding
+  const int j = (k - lay.o[1]) >> 2, c = (k - lay.o[1]) & 3;
+  const float* S = buf + m.o_sp + RSP * j;
+  if (c < 3) return S[c];
+  const float r2 = S[3] * S[3];
+  return S[4] != 0.0f ? -r2 : r2;
+}
+
+// Stage the tile of floats [a, b) of the tile layout: every thread of the
 // block calls it, between barriers that it makes itself.
-__device__ __forceinline__ void stage_tile(const Meta& m, const float* __restrict__ buf,
-                                           float* sm, int a, int b) {
+__device__ __forceinline__ void stage_tile(const Meta& m, const Layout& lay,
+                                           const float* __restrict__ buf, float* sm, int a,
+                                           int b) {
   __syncthreads();  // the last tile's readers are done
-  const int end = min(b + TILE_PAD, m.o_ld);
-  for (int k = a + threadIdx.x; k < end; k += blockDim.x) sm[k - a] = buf[k];
+  const int a0 = a & ~3, end = min(b + TILE_PAD, lay.n);
+  for (int k = a0 + threadIdx.x; k < end; k += blockDim.x) sm[k - a0] = tile_float(m, lay, buf, k);
   __syncthreads();
+}
+
+// sphere_test on a sphere staged in the tile layout, in two parts.  A miss
+// needs only h = b^2 - c and its sign: the line meets the sphere where
+// h >= 0.  Only there do the sweeps take the root, the hollow retry, t > 0
+// and their comparison, so a warp in which no lane's line meets the sphere
+// issues nothing more for the pair.  The same operations in the same order
+// as sphere_test, so the same bits.
+__device__ __forceinline__ bool sphere_tile_line(float4 S, f3 o, f3 d, float& b, float& h) {
+  float ocx = o.x - S.x, ocy = o.y - S.y, ocz = o.z - S.z;
+  b = ocx * d.x + ocy * d.y + ocz * d.z;
+  float cc = ocx * ocx + ocy * ocy + ocz * ocz - fabsf(S.w);
+  h = b * b - cc;
+  return h >= 0.0f;
+}
+
+// The root where the line meets the sphere: the near one, or from inside a
+// hollow sphere the far one (hollow = false tests the sphere solid).
+__device__ __forceinline__ float sphere_tile_root(float4 S, bool hollow, float b, float h) {
+  float hs = sqrtf(h);
+  float t = -b - hs;
+  if (hollow && __float_as_int(S.w) < 0 && t < 0.0f) t = -b + hs;
+  return t;
 }
 
 // calcInter (rt.frag:587-628) over a span: its slots in reference order
 // (planes, spheres, surfaces, boxes, toruses, rings, point-light bulbs) with
 // strict '<', on from (tmin, slot).  Spans swept in slot order give the
-// whole sweep's winner and ties.
+// whole sweep's winner and ties.  kTiled: the span is a tile in the tile
+// layout; else the table as packed.
+template <bool kTiled>
 __device__ __forceinline__ void nearest_span(const Meta& m, const Span& sp, const float* sm,
                                              f3 o, f3 d, float& tmin, int& slot) {
   const bool one_side = m.flags & FLAG_ONE_SIDE;
   const float* tab = sm - sp.a;
+  const int* off = sp.lay.o;
   const int b_sp = m.n_pl, b_su = b_sp + m.n_sp, b_bx = b_su + m.n_su, b_to = b_bx + m.n_bx;
   const int b_ri = b_to + m.n_to, b_lp = b_ri + m.n_ri;
   float t;
   for (int k = sp.lo[0]; k < sp.hi[0]; ++k)
-    if (plane_test(tab + m.o_pl + RPL * k, o, d, one_side, t) && t < tmin) tmin = t, slot = k;
-  for (int k = sp.lo[1]; k < sp.hi[1]; ++k) {
-    const float* S = tab + m.o_sp + RSP * k;
-    if (sphere_test(S, S[3], S[4] != 0.0f, o, d, t) && t < tmin) tmin = t, slot = b_sp + k;
+    if (plane_test(tab + off[0] + RPL * k, o, d, one_side, t) && t < tmin) tmin = t, slot = k;
+  if constexpr (kTiled) {
+    const float4* S = reinterpret_cast<const float4*>(tab + off[1]);
+#pragma unroll 4
+    for (int k = sp.lo[1]; k < sp.hi[1]; ++k) {
+      const float4 s = S[k];
+      float b, h;
+      if (sphere_tile_line(s, o, d, b, h)) {
+        t = sphere_tile_root(s, true, b, h);
+        if (t > 0.0f && t < tmin) tmin = t, slot = b_sp + k;
+      }
+    }
+  } else {
+    for (int k = sp.lo[1]; k < sp.hi[1]; ++k) {
+      const float* S = tab + off[1] + RSP * k;
+      if (sphere_test(S, S[3], S[4] != 0.0f, o, d, t) && t < tmin) tmin = t, slot = b_sp + k;
+    }
   }
   for (int k = sp.lo[2]; k < sp.hi[2]; ++k)
-    if (surface_test(tab + m.o_su + RSU * k, o, d, t) && t < tmin) tmin = t, slot = b_su + k;
+    if (surface_test(tab + off[2] + RSU * k, o, d, t) && t < tmin) tmin = t, slot = b_su + k;
   for (int k = sp.lo[3]; k < sp.hi[3]; ++k)
-    if (box_test(tab + m.o_bx + RBX * k, o, d, t) && t < tmin) tmin = t, slot = b_bx + k;
+    if (box_test(tab + off[3] + RBX * k, o, d, t) && t < tmin) tmin = t, slot = b_bx + k;
   for (int k = sp.lo[4]; k < sp.hi[4]; ++k)
-    if (torus_test(tab + m.o_to + RTO * k, o, d, t) && t < tmin) tmin = t, slot = b_to + k;
+    if (torus_test(tab + off[4] + RTO * k, o, d, t) && t < tmin) tmin = t, slot = b_to + k;
   for (int k = sp.lo[5]; k < sp.hi[5]; ++k) {
     float x, pp;
-    if (ring_test(tab + m.o_ri + RRI * k, o, d, t, x, pp) && t < tmin) tmin = t, slot = b_ri + k;
+    if (ring_test(tab + off[5] + RRI * k, o, d, t, x, pp) && t < tmin) tmin = t, slot = b_ri + k;
   }
   for (int k = sp.lo[6]; k < sp.hi[6]; ++k) {
-    const float* L = tab + m.o_lp + RLP * k;
+    const float* L = tab + off[6] + RLP * k;
     if (sphere_test(L, L[3], false, o, d, t) && t < tmin) tmin = t, slot = b_lp + k;
   }
 }
@@ -417,7 +502,7 @@ __device__ __forceinline__ void nearest_sweep(const Meta& m, const float* sm, f3
                                               float& tmin, int& slot) {
   tmin = INF_T;
   slot = 0;
-  nearest_span(m, whole_span(m), sm, o, d, tmin, slot);
+  nearest_span<false>(m, whole_span(m), sm, o, d, tmin, slot);
 }
 
 // inShadow's solid part (rt.frag:630-658) over a span: any occluder closer
@@ -425,30 +510,46 @@ __device__ __forceinline__ void nearest_sweep(const Meta& m, const float* sm, f3
 // rings are left to the caller, which needs each ring's (hit, u, v).  The
 // bit is an OR, so the ray stops at its first occluder, testing the cheap
 // types first: spheres, two-sided planes, boxes, surfaces, then toruses.
+// kTiled as nearest_span's.
+template <bool kTiled>
 __device__ __forceinline__ bool occluded_span(const Meta& m, const Span& sp, const float* sm,
                                               f3 o, f3 d, float dist) {
   const bool one_side = m.flags & FLAG_ONE_SIDE;
   const float* tab = sm - sp.a;
+  const int* off = sp.lay.o;
   float t;
-  for (int k = sp.lo[1]; k < sp.hi[1]; ++k) {
-    const float* S = tab + m.o_sp + RSP * k;
-    if (sphere_test(S, S[3], false, o, d, t) && t < dist) return true;
+  if constexpr (kTiled) {
+    const float4* S = reinterpret_cast<const float4*>(tab + off[1]);
+#pragma unroll 4
+    for (int k = sp.lo[1]; k < sp.hi[1]; ++k) {
+      const float4 s = S[k];
+      float b, h;
+      if (sphere_tile_line(s, o, d, b, h)) {
+        t = sphere_tile_root(s, false, b, h);
+        if (t > 0.0f && t < dist) return true;
+      }
+    }
+  } else {
+    for (int k = sp.lo[1]; k < sp.hi[1]; ++k) {
+      const float* S = tab + off[1] + RSP * k;
+      if (sphere_test(S, S[3], false, o, d, t) && t < dist) return true;
+    }
   }
   if (!one_side)
     for (int k = sp.lo[0]; k < sp.hi[0]; ++k)
-      if (plane_test(tab + m.o_pl + RPL * k, o, d, one_side, t) && t < dist) return true;
+      if (plane_test(tab + off[0] + RPL * k, o, d, one_side, t) && t < dist) return true;
   for (int k = sp.lo[3]; k < sp.hi[3]; ++k)
-    if (box_test(tab + m.o_bx + RBX * k, o, d, t) && t < dist) return true;
+    if (box_test(tab + off[3] + RBX * k, o, d, t) && t < dist) return true;
   for (int k = sp.lo[2]; k < sp.hi[2]; ++k)
-    if (surface_test(tab + m.o_su + RSU * k, o, d, t) && t < dist) return true;
+    if (surface_test(tab + off[2] + RSU * k, o, d, t) && t < dist) return true;
   for (int k = sp.lo[4]; k < sp.hi[4]; ++k)
-    if (torus_test(tab + m.o_to + RTO * k, o, d, t) && t < dist) return true;
+    if (torus_test(tab + off[4] + RTO * k, o, d, t) && t < dist) return true;
   return false;
 }
 
 __device__ __forceinline__ bool occluded(const Meta& m, const float* sm, f3 o, f3 d,
                                          float dist) {
-  return occluded_span(m, whole_span(m), sm, o, d, dist);
+  return occluded_span<false>(m, whole_span(m), sm, o, d, dist);
 }
 
 // Ring k's shadow-ray hit closer than dist, with its (u, v):
@@ -502,15 +603,23 @@ inline int allow_smem(Kernel kernel, size_t smem, size_t own) {
 // registers and threads allow, less the kernel's own (static) shared memory
 // and the opt-in's cap.  When `whole_floats` (what the whole kernel stages)
 // fit the whole kernel's room, it runs as ever: tile 0, one stage.  Else the
-// tiled kernel sweeps the slot records (floats [0, m.o_ld)) in n_tiles tiles
-// of `tile` floats, each staged with TILE_PAD more, a tile as large as its
-// room allows, then made even: so a table never costs a block of occupancy
-// (the tiles' barriers, one pair a tile, are few beside a tile's sweep).
-// `force` > 0 sets the tile instead (tests).  Derived from the current
-// card's limits at each launch; nothing to configure.  The chosen kernel's
-// shared-memory limit is raised to what it needs.
+// tiled kernel sweeps the slot records in the tile layout (floats
+// [0, tile_layout(m).n)) in n_tiles tiles of `tile` floats, each staged with
+// up to 3 floats before it and TILE_PAD after, a tile as large as its room
+// allows, then made even: so a table never costs a block of occupancy (the
+// tiles' barriers, one pair a tile, are few beside a tile's sweep).  `force`
+// > 0 sets the tile instead (tests).  Derived from the current card's limits
+// at each launch; nothing to configure.  The chosen kernel's shared-memory
+// limit is raised to what it needs.  Tiles: what the kernels read of the
+// plan (the tile, and the layout it cuts).
+struct Tiles {
+  int tile;
+  Layout lay;
+};
+
 struct Stage {
-  int tile, n_tiles;
+  Tiles t;
+  int n_tiles;
   size_t smem;
 };
 
@@ -543,22 +652,23 @@ inline int plan_stage(const Meta& m, Whole whole, Tiled tiled, int threads, int 
     if (int e = smem_room(whole, threads, room, own)) return e;
     const size_t need = (size_t)whole_floats * sizeof(float);
     if ((long long)need <= room) {
-      st = Stage{0, 1, need};
+      st = Stage{Tiles{0, table_layout(m)}, 1, need};
       return allow_smem(whole, need, own);
     }
   }
   if (int e = smem_room(tiled, threads, room, own)) return e;
-  const int n_rec = m.o_ld;
+  const Layout lay = tile_layout(m);
+  const int n_rec = lay.n;
   int tile = force;
   if (tile <= 0) {
-    const long long most = room / (long long)sizeof(float) - TILE_PAD;
+    const long long most = room / (long long)sizeof(float) - 3 - TILE_PAD;
     if (most < RSU) return (int)cudaErrorInvalidValue;
     const int n_tiles = (int)((n_rec + most - 1) / most);
     tile = (n_rec + n_tiles - 1) / n_tiles;
   }
   tile = std::max(tile, 1);
-  st = Stage{tile, std::max((n_rec + tile - 1) / tile, 1),
-             (size_t)(tile + TILE_PAD) * sizeof(float)};
+  st = Stage{Tiles{tile, lay}, std::max((n_rec + tile - 1) / tile, 1),
+             (size_t)(tile + 3 + TILE_PAD) * sizeof(float)};
   return allow_smem(tiled, st.smem, own);
 }
 

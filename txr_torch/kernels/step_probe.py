@@ -395,8 +395,9 @@ def launch(buf, hdr, ro, rd, pix_angle=0.0, alive=None, tile=0):
     stages the table in shared memory whole when it fits the room a block
     has at the kernel's register-limited occupancy, else sweeps it in
     tiles sized from the table and the card's limits
-    (``csrc/txr_common.cuh: plan_stage``); ``tile`` > 0 forces tiles of
-    that many floats (tests).  Counts its launches in
+    (``csrc/txr_common.cuh: plan_stage``), each sphere staged as one
+    (centre, r²) record (``tile_layout``); ``tile`` > 0 forces tiles of
+    that many floats of that layout (tests).  Counts its launches in
     ``step_probe.launches`` and the tiles each block stages a sweep (1: the
     whole table) in ``step_probe.tiles``."""
     dev = ro.device
