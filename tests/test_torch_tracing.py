@@ -13,12 +13,15 @@
   ``max_steps`` (the last count is then read after the tail, under
   ``txr.wait_last``); ``rows`` is each step's capacity (R on the CPU),
   over both programs of an edge-AA frame; ``compacted`` adds 1 a step run
-  below its unit's rays (capacities forced as the card's);
+  below its unit's rays (capacities forced as the card's); an eager step
+  adds the nearest-hit and shadow sweeps it called to ``nearest_calls`` and
+  ``shadow_calls``, which a probe-route step leaves out;
 * under ``torch.profiler``, each span but the root shows once as a
   ``user_annotation`` of its name, its length the in-memory span's.
 """
 
 import collections
+import dataclasses
 import json
 import re
 
@@ -28,6 +31,8 @@ import torch
 from txr_torch.apps import demo as tdemo
 from txr_torch.apps import inverse as tinv
 from txr_torch.diff import optimize as om
+from txr_torch.kernels.nearest_hit import nearest_hit_sweep
+from txr_torch.kernels.shadow_sweep import shadow_sweep
 from txr_torch.render import graphs
 from txr_torch.render import render as rr
 from txr_torch.render import trace as tr
@@ -252,3 +257,23 @@ def test_tiles_and_pairs_counters(demo, tracer):
     assert slots == 13
     assert c["pairs"] == [n * slots for n in c["lanes"]]
     assert c["tiles"] == c["unfilled"] and sum(c["tiles"]) == 2 * sum(c["steps"])
+
+
+@pytest.mark.parametrize("fused,glossy,per_step", [("off", True, 2), ("off", False, 1),
+                                                   ("auto", True, 0)])
+def test_sweep_call_counters(demo, tracer, fused, glossy, per_step):
+    """Each eager step adds the nearest-hit and shadow sweeps it called, as
+    its capacity's step made them, to ``nearest_calls`` and ``shadow_calls``:
+    one each for the step's hit and shade, and one more each for the glossy
+    pass, whose every lane a fixed-shape step traces.  They are every sweep
+    call of the frame.  The probe route's steps call neither."""
+    cfg = dataclasses.replace(CFG, fused=fused, refractive_glossy=glossy)
+    before = nearest_hit_sweep.calls, shadow_sweep.calls
+    _frame(demo, cfg)
+    made = nearest_hit_sweep.calls - before[0], shadow_sweep.calls - before[1]
+    (rec,) = tracer.records()
+    c = rec["counters"]
+    assert sum(c["steps"]) > 1
+    for name, calls in zip(("nearest_calls", "shadow_calls"), made):
+        assert c.get(name, []) == [per_step] * (sum(c["steps"]) if per_step else 0)
+        assert sum(c.get(name, [])) == calls

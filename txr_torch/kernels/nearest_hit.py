@@ -47,13 +47,18 @@ def nearest_hit_ref(buf, hdr, ro, rd, alive=None):
 
 def nearest_hit_sweep(buf, hdr, ro, rd, alive=None):
     """(tmin, slot) on the rays' device: the kernel for CUDA tensors, the
-    twin for CPU tensors."""
+    twin for CPU tensors.  ``nearest_hit_sweep.calls`` counts the calls
+    that sweep a ray, on either device (on the card, the launches):
+    ``render/graphs.py`` tallies them per bounce step for the tracer."""
+    nearest_hit_sweep.calls += ro.shape[0] > 0
     if ro.device.type == "cpu":
         check_rays("nearest_hit", ro.device, ro, rd)
         check_mask("nearest_hit", ro.device, alive, ro.shape[0])
         return nearest_hit_ref(buf, hdr, ro, rd, alive)
     return launch(buf, hdr, ro, rd, alive)
 
+
+nearest_hit_sweep.calls = 0
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]

@@ -57,13 +57,18 @@ def shadow_sweep_ref(buf, hdr, ro, rd, dist, need=None):
 
 def shadow_sweep(buf, hdr, ro, rd, dist, need=None):
     """(solid, ring_hit, ring_uv) on the rays' device: the kernel for CUDA
-    tensors, the twin for CPU tensors."""
+    tensors, the twin for CPU tensors.  ``shadow_sweep.calls`` counts the
+    calls that sweep a ray, on either device (on the card, the launches):
+    ``render/graphs.py`` tallies them per bounce step for the tracer."""
+    shadow_sweep.calls += ro.shape[0] > 0
     if ro.device.type == "cpu":
         check_rays("shadow_sweep", ro.device, ro, rd, dist)
         check_mask("shadow_sweep", ro.device, need, ro.shape[0])
         return shadow_sweep_ref(buf, hdr, ro, rd, dist, need)
     return launch(buf, hdr, ro, rd, dist, need)
 
+
+shadow_sweep.calls = 0
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,

@@ -50,6 +50,8 @@ import torch
 
 from txr_torch.kernels import add_launch_counts, lane_map, launch_counts
 from txr_torch.kernels import step_probe as sp
+from txr_torch.kernels.nearest_hit import nearest_hit_sweep
+from txr_torch.kernels.shadow_sweep import shadow_sweep
 from txr_torch.render import trace as tr
 from txr_torch.render.intersect import fixed_shapes
 from txr_torch.scene.types import unflatten_like
@@ -175,6 +177,15 @@ def capacities(R, device):
     return caps
 
 
+def _call_tallies():
+    """The running tallies of what bounce steps call, under the tracer's
+    counter names: the probe calls without fills and the table tiles they
+    staged, and the nearest-hit and shadow sweeps (the eager route's kernel
+    launches)."""
+    return dict(unfilled=sp.step_probe.unfilled, tiles=sp.step_probe.tiles,
+                nearest_calls=nearest_hit_sweep.calls, shadow_calls=shadow_sweep.calls)
+
+
 def _state_fields(n):
     """The bounce state of n rows (``trace.initial_state``'s types)."""
     v3, v1 = ((n, 3), torch.float32), ((n,), torch.float32)
@@ -253,7 +264,8 @@ class TraceUnit:
                        else None)
         self.live = {}
         self.steps_run = []
-        self.unfilled, self.tiles = {}, {}
+        # per capacity, what its step added to each of ``_call_tallies``
+        self.calls = {}
         # the slots a nearest-hit sweep tests (the tracer's ``pairs``)
         self.n_slots = sum(frame.scene.counts[k] for k in sp.SLOT_ORDER)
         if train:
@@ -287,7 +299,7 @@ class TraceUnit:
 
     def _step(self, C):
         f, st, R = self.frame, self.st, self.R
-        before = sp.step_probe.unfilled, sp.step_probe.tiles
+        before = _call_tallies()
         if C == R:
             sub = st
         else:
@@ -308,10 +320,8 @@ class TraceUnit:
         else:
             lane_map.scatter(new, lane, self.rows, live)
         self.live[C] = live
-        # the probe calls without fills and the table tiles the step's probe
-        # calls staged (a capture's are the ones its replays launch)
-        self.unfilled[C] = sp.step_probe.unfilled - before[0]
-        self.tiles[C] = sp.step_probe.tiles - before[1]
+        # a capture's calls are the ones its replays launch
+        self.calls[C] = {k: n - before[k] for k, n in _call_tallies().items()}
 
     def _tail(self):
         self.color = tr.shade_misses(self.frame.scene, self.frame.textures, self.st)
@@ -383,8 +393,10 @@ class TraceUnit:
         to the counters ``lanes``, ``rows`` and ``steps``, its live lanes
         times the scene's slots to ``pairs`` (and 1 to ``compacted`` at a
         capacity below R; the probe launches without fills and the table
-        tiles its probe launches staged, as its capacity's step made them
-        when it ran or was captured, to ``unfilled`` and ``tiles``): the
+        tiles its probe launches staged, and the nearest-hit and shadow
+        sweeps it called (the eager route's kernel launches), as its
+        capacity's step made them when it ran or was captured, to
+        ``unfilled``, ``tiles``, ``nearest_calls`` and ``shadow_calls``): the
         count it reads one step late is the lanes entering the step
         before."""
         traced = profiling.enabled()
@@ -415,10 +427,9 @@ class TraceUnit:
                 count("steps", 1)
                 if C < self.R:
                     count("compacted", 1)
-                if self.unfilled.get(C):
-                    count("unfilled", self.unfilled[C])
-                if self.tiles.get(C):
-                    count("tiles", self.tiles[C])
+                for name, n in self.calls.get(C, {}).items():
+                    if n:
+                        count(name, n)
             if self.train:
                 saves.append((C, self.stage[C].buf.clone()))
         with span("txr.tail"):
