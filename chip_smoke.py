@@ -515,7 +515,7 @@ def probe_into(buf, hdr, ro, rd, pix, alive, f, i):
     build.run("step_probe", "txr_step_probe", sp._ARGS, ro.device, hdr, buf.data_ptr(),
               float(pix), ro.data_ptr(), rd.data_ptr(),
               None if mask is None else mask.data_ptr(), f.data_ptr(), i.data_ptr(),
-              ro.shape[0], 0, None)
+              ro.shape[0], 0, None, None)
 
 
 NAN_BITS = 0x7FC00000     # NaN's bits, set in the int rows before a launch

@@ -283,7 +283,7 @@ def _probe_over_nan(scene, tex, cfg, table, ro, rd, shade_flipped, alive):
     mask = scene_table.check_mask("step_probe", ro.device, alive, N)
     build.run("step_probe", "txr_step_probe", sp._ARGS, ro.device, hdr, buf.data_ptr(),
               float(_pix_angle(cfg) or 0.0), ro.data_ptr(), rd.data_ptr(), mask.data_ptr(),
-              f.data_ptr(), i.data_ptr(), N, 0, None)
+              f.data_ptr(), i.data_ptr(), N, 0, None, None)
     return sp.Rows(f, i, scene.counts)
 
 

@@ -13,7 +13,8 @@ On the CPU (tier 1):
   float64 reference (``rtbench/reference/render.py``), and the tracer's
   ``tiles`` and ``pairs`` counters of that frame: 1 a probe call (the twin
   sweeps the table whole), the live lanes entering each step times the
-  scene's 7,385 slots (7,381 spheres, the floor, 3 light bulbs).
+  scene's 7,385 slots (7,381 spheres, the floor, 3 light bulbs); and no
+  ``grouped`` call (the twin takes no light groups).
 
 On the card (marker ``card``; no JAX, so the file runs alone there:
 ``python -m pytest --noconftest -m card tests/test_torch_spd_balls.py``):
@@ -22,6 +23,8 @@ On the card (marker ``card``; no JAX, so the file runs alone there:
   against ``step_probe_ref`` within ``chip_smoke.py`` phase 2's limits
   (``compare_probe``), both shading variants; without fill rows, the rows
   a reader reads are the filled launch's bit for bit, the others unwritten;
+* the tracer's ``grouped`` counts every probe call of a balls frame (its
+  shadow pass takes a lane's lights in groups) and none of a demo frame;
 * a 1080p ``render_jit`` frame against the reference within the cell's
   limits (``rtbench/limits/spd-balls-1080p-view.json``);
 * the eager route (``fused="off"``): every nearest-hit and shadow-sweep
@@ -41,6 +44,7 @@ import torch
 from rtbench import check, scenedata, system
 from rtbench.reference import render as ref
 from txr_torch.kernels import step_probe as sp
+from txr_torch.render import graphs
 from txr_torch.render import render as rr
 from txr_torch.utils import profiling
 
@@ -145,8 +149,9 @@ def test_tiles_and_pairs_counters(cpu_frame, cfg):
     assert c["pairs"] == [n * slots for n in c["lanes"]]
     # the CPU's twin sweeps the table whole: 1 a probe call, and every
     # probe of a forward step stores no fills (2 a step: the step's probe,
-    # the glossy probe)
+    # the glossy probe); its shadow pass takes no light groups
     assert c["tiles"] == c["unfilled"] == [2] * sum(c["steps"])
+    assert "grouped" in graphs._call_tallies() and "grouped" not in c
 
 
 # ---- on the card --------------------------------------------------------
@@ -189,9 +194,10 @@ def test_tiled_probe_is_the_twins(card, cfg, shade_flipped):
     buf, hdr = pack_scene(scene, None)
     hdr = set_flags(hdr, shade_flipped=shade_flipped)
     ro, rd = _rays(scene, 480, 270, 1 << 14)
-    before = sp.step_probe.tiles
+    before = sp.step_probe.tiles, sp.step_probe.grouped
     f, i = sp.launch(buf, hdr, ro, rd)
-    assert sp.step_probe.tiles - before > 1          # swept in tiles
+    assert sp.step_probe.tiles - before[0] > 1       # swept in tiles
+    assert sp.step_probe.grouped - before[1] == 1    # its lights in groups
     n = 1 << 15                  # the twin on a share of the lanes
     pick = torch.randperm(ro.shape[0], device=card)[:n]
     fr, ir = sp.step_probe_ref(buf, hdr, ro[pick].contiguous(), rd[pick].contiguous())
@@ -211,6 +217,40 @@ def test_tiled_probe_is_the_twins(card, cfg, shade_flipped):
     assert torch.equal(bits(f0[:23, hit]), bits(f[:23, hit])) and torch.equal(i0[:, hit], i[:, hit])
     assert torch.equal(bits(f0[:, shades]), bits(f[:, shades]))
     assert torch.isnan(f0[1:, ~hit]).all() and torch.isnan(f0[23:, hit & ~shades]).all()
+
+
+@pytest.mark.card
+def test_grouped_counter_on_the_card(card, cfg):
+    """The tracer's ``grouped`` counts every probe call of a balls frame
+    (its table is swept in tiles, 3 lights each shaded with shadows) and
+    none of a demo frame (its table staged whole)."""
+    from txr_torch.apps import demo as tdemo
+    from txr_torch.render.texture import with_mips
+    from txr_torch.render.trace import RenderConfig
+
+    scene, _ = system.scene(cfg, card)
+    dscene, handles = tdemo.build_scene(480, 270)
+    dscene = tdemo.update_scene(dscene.to(card), handles, 0.0, 60.5)
+    frames = [(scene, system.textures(cfg, {}), system.render_config(cfg, 480, 270)),
+              (dscene, with_mips(tdemo.demo_textures().to(card)), RenderConfig(width=480, height=270))]
+    counters = []
+    rr.clear_jit_cache()
+    profiling.reset()
+    profiling.tracing(True)
+    try:
+        for sc, tex, rc in frames:
+            with torch.no_grad():
+                rr.render_jit(sc, tex, rc, device=card)
+        counters = [rec["counters"] for rec in profiling.records()]
+    finally:
+        profiling.tracing(False)
+        profiling.reset()
+        rr.clear_jit_cache()
+    balls, demo = counters
+    assert sum(balls["steps"]) >= 2 and sum(balls["tiles"]) > sum(balls["unfilled"])
+    assert balls["grouped"] == balls["unfilled"]
+    assert sum(demo["steps"]) >= 2 and sum(demo["tiles"]) == sum(demo["unfilled"])
+    assert "grouped" not in demo
 
 
 @pytest.mark.card

@@ -25,7 +25,13 @@ On the card (marker ``card``; no JAX, so the file runs alone there:
   section mid-way and mid-record, that hold a single sphere or none, on
   rays that start inside the demo's hollow spheres, and a shadow sweep
   whose only occluder is the one sphere of the last tile, give the
-  whole-table launch's outputs bit for bit.
+  whole-table launch's outputs bit for bit;
+* the tiled probe's shadow pass takes a shading lane's lights in groups
+  (``csrc/step_probe.cu: Lights``, ``txr_common.cuh: occluded_group_span``):
+  with 1, 2, 3, G, G + 1 and 2G + 1 lights, point and directional, rings,
+  two-sided planes, a box, a quadric and a torus, its rows are the
+  whole-table launch's bit for bit; and one lane's lights occluded in
+  different tiles, one light by nothing, give the whole-table rows.
 """
 
 import ctypes
@@ -145,18 +151,19 @@ NAN_BITS = 0x7FC00000
 
 def _probe_into_nan(buf, hdr, ro, rd, pix, alive, tile):
     """The probe launched with ``tile`` (0: as planned) into rows set to NaN
-    beforehand → (f, i, tiles a sweep)."""
+    beforehand → (f, i, tiles a sweep, 1 where its shadow pass took lights
+    in groups)."""
     from txr_torch.kernels import build
 
     N = ro.shape[0]
     f = torch.full((sp.n_rows(scene_table.counts_of(hdr)), N), float("nan"), device=ro.device)
     i = torch.full((3, N), NAN_BITS, dtype=torch.int32, device=ro.device)
-    tiles = ctypes.c_int(0)
+    tiles, grouped = ctypes.c_int(0), ctypes.c_int(0)
     build.run("step_probe", "txr_step_probe", sp._ARGS, ro.device, hdr, buf.data_ptr(),
               float(pix), ro.data_ptr(), rd.data_ptr(),
               None if alive is None else alive.view(torch.uint8).data_ptr(), f.data_ptr(),
-              i.data_ptr(), N, int(tile), ctypes.addressof(tiles))
-    return f, i, tiles.value
+              i.data_ptr(), N, int(tile), ctypes.addressof(tiles), ctypes.addressof(grouped))
+    return f, i, tiles.value, grouped.value
 
 
 def _demo_rays(card, n_random=1 << 16):
@@ -204,7 +211,7 @@ def _all_kernels(buf, hdr, ro, rd, dist, pix, alive, tile):
     from txr_torch.kernels import nearest_hit as nh
     from txr_torch.kernels import shadow_sweep as ss
 
-    f, i, n = _probe_into_nan(buf, hdr, ro, rd, pix, alive, tile)
+    f, i, n, _ = _probe_into_nan(buf, hdr, ro, rd, pix, alive, tile)
     t, s = nh.launch(buf, hdr, ro, rd, alive, tile=tile)
     k = ss.launch(buf, hdr, ro, rd, dist, alive, tile=tile)
     out = [_bits(f), i, _bits(t), s, _bits(k[0])]
@@ -220,14 +227,14 @@ def test_tiled_probe_is_the_whole_tables(card, fill, shade_flipped):
     buf, hdr, ro, rd, alive = _demo_rays(card)
     hdr = scene_table.set_flags(hdr, shade_flipped=shade_flipped, fill=fill)
     pix = 1.0 / 1080.0
-    f0, i0, n0 = _probe_into_nan(buf, hdr, ro, rd, pix, alive, 0)
-    assert n0 == 1                        # the demo's table fits a block
+    f0, i0, n0, g0 = _probe_into_nan(buf, hdr, ro, rd, pix, alive, 0)
+    assert (n0, g0) == (1, 0)             # the demo's table fits a block
     hit = alive & (f0[0] < 1e30)
     assert int(hit.sum()) > 10000 and int((alive & ~hit).sum()) > 10000
     _, n_rec = _tile_layout(hdr)
     for tile in (5, 16, 64, n_rec):
-        f, i, n = _probe_into_nan(buf, hdr, ro, rd, pix, alive, tile)
-        assert n == -(-n_rec // tile)
+        f, i, n, g = _probe_into_nan(buf, hdr, ro, rd, pix, alive, tile)
+        assert n == -(-n_rec // tile) and g == 1
         assert torch.equal(_bits(f), _bits(f0)), tile
         assert torch.equal(i, i0), tile
 
@@ -296,22 +303,29 @@ def test_packed_sphere_tiles_are_the_whole_tables(card):
 
 @pytest.mark.card
 def test_occluder_in_the_last_tile(card):
-    """A shadow sweep whose only occluder is the one sphere of the last
-    tile: rays from the floor under it toward the light, and the probe's
-    shading pairs of primary rays that hit that floor."""
+    """A shadow sweep toward a light whose only occluder is the one sphere
+    of the last tile: rays from the floor under it toward the light; and
+    the probe's shading of primary rays that hit that floor under three
+    lights: that light, one that the first tile's first sphere occludes
+    from the same floor, and one that nothing occludes."""
     from txr_torch.kernels import shadow_sweep as ss
 
     n_sp = 64
     b = SceneBuilder(camera_pos=(0.0, 0.5, -8.0))
     b.add_light_point((0.0, 10.0, 0.0), (1.0, 1.0, 1.0), 1.0)
+    b.add_light_point((12.0, 10.0, 0.0), (1.0, 1.0, 1.0), 1.0)
+    b.add_light_point((0.0, 0.5, -30.0), (1.0, 1.0, 1.0), 1.0)
     mat = b.material((0.5, 0.5, 0.5))
-    for k in range(n_sp - 1):                # far off to the side: no shadow on the floor
+    # the second light's occluder, first: on its line from the floor's middle,
+    # out of the first light's rays from the floor
+    b.add_sphere((4.8, 3.46, 0.0), 1.0, mat)
+    for k in range(n_sp - 2):                # far off to the side: no shadow on the floor
         b.add_sphere((30.0 + 0.5 * k, 5.0, 30.0), 0.2, mat, hollow=bool(k % 5 == 0))
-    b.add_sphere((0.0, 2.0, 0.0), 1.0, mat)  # the occluder, last
+    b.add_sphere((0.0, 2.0, 0.0), 1.0, mat)  # the first light's occluder, last
     b.add_box((0.0, -1.0, 0.0), (10.0, 0.1, 10.0), mat)
     buf, hdr = scene_table.pack_scene(b.build().to(card), None)
     off, n_rec = _tile_layout(hdr)
-    tile = off[1] + 4 * (n_sp - 1)          # the last tile starts at the occluder
+    tile = off[1] + 4 * (n_sp - 1)          # the last tile starts at the last sphere
     assert -(-n_rec // tile) == 2
     g = torch.Generator(device=card).manual_seed(7)
     m = 1 << 15
@@ -326,16 +340,101 @@ def test_occluder_in_the_last_tile(card):
     twin = ss.shadow_sweep_ref(buf, hdr, at.contiguous(), sd, dist)
     assert torch.equal(got[0], want[0]) and torch.equal(got[0], twin[0])
     assert m // 50 < int(got[0].sum()) < m - m // 50
-    # primary rays from beside the occluder down to the same floor
+    # primary rays from beside the occluders down to the same floor
     ro = torch.cat([(torch.rand(m, 1, generator=g, device=card) - 0.5) * 6.0,
                     torch.full((m, 1), 0.5, device=card), torch.full((m, 1), -8.0, device=card)],
                    dim=1)
     rd = torch.nn.functional.normalize(at - ro, dim=-1).contiguous()
     ro = ro.contiguous()
-    f0, i0, n0 = _probe_into_nan(buf, hdr, ro, rd, 0.0, None, 0)
-    f, i, n = _probe_into_nan(buf, hdr, ro, rd, 0.0, None, tile)
-    assert (n0, n) == (1, 2)
+    f0, i0, n0, g0 = _probe_into_nan(buf, hdr, ro, rd, 0.0, None, 0)
+    f, i, n, g1 = _probe_into_nan(buf, hdr, ro, rd, 0.0, None, tile)
+    assert (n0, n, g0, g1) == (1, 2, 0, 1)
     assert torch.equal(_bits(f), _bits(f0)) and torch.equal(i, i0)
     box = i0[0] == n_sp                     # the floor's slot, after the spheres
-    solid = f0[23 + 2]                      # the light's solid row
-    assert int(box.sum()) > m // 2 and m // 50 < int((solid[box] > 0).sum()) < int(box.sum())
+    first, second, third = (f0[23 + 3 * j + 2][box] > 0 for j in range(3))  # solid rows
+    n_box = int(box.sum())
+    assert n_box > m // 2 and m // 50 < int(first.sum()) < n_box
+    # lanes whose first light the last tile occludes and second the first tile
+    assert int((first & second).sum()) > m // 50 and int((second & ~first).sum()) > m // 50
+    assert not third.any()
+
+
+def _group_size():
+    """The lights a thread of the tiled probe's shadow pass takes at once
+    (``csrc/step_probe.cu: kGroup``)."""
+    path = os.path.join(os.path.dirname(sp.__file__), "csrc", "step_probe.cu")
+    with open(path) as f:
+        (g,) = re.findall(r"constexpr int kGroup = (\d+);", f.read())
+    return int(g)
+
+
+def _lit_scene(n_lights, seed=11):
+    """Spheres (some hollow), two planes, a box, a quadric, a torus and two
+    rings, with n_lights lights: point and directional in turn, so a group
+    of lights holds both kinds."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder(camera_pos=(0.0, 1.0, -14.0))
+    m = b.material((0.6, 0.5, 0.4), specular=20)
+    for k in range(40):
+        b.add_sphere(tuple(rng.uniform(-4.0, 4.0, 3)), float(rng.uniform(0.2, 0.8)), m,
+                     hollow=bool(k % 6 == 0))
+    b.add_plane((0.0, 1.0, 0.0), (0.0, -4.5, 0.0), m)
+    b.add_plane((0.96, 0.0, 0.28), (-6.0, 0.0, 0.0), m)
+    b.add_box((2.0, -3.0, 2.0), (1.5, 0.4, 1.0), m)
+    b.add_surface((1.0, 1.0, 4.0, 0.0, 0.0, -1.0), m, pos=(-2.5, -2.0, -2.0))
+    b.add_torus((-2.0, 0.5, 3.0), (1.2, 0.3), m)
+    b.add_ring((0.0, 2.0, 1.0), 0.8, 2.0, m, quat=(0.3826834, 0.0, 0.0, 0.9238795))
+    b.add_ring((3.0, 1.0, -1.0), 0.5, 1.5, m)
+    for j in range(n_lights):
+        # above the floor and on the lit side of the other plane, so a light
+        # behind neither occludes every lane; lanes under the floor see the
+        # floor occlude it (two-sided)
+        u = np.zeros(3)
+        while u @ (0.96, 0.0, 0.28) < 0.2:
+            u = rng.normal(size=3)
+            u[1] = abs(u[1]) + 0.5
+            u /= np.linalg.norm(u)
+        if j % 2 == 0:
+            b.add_light_point(tuple(u * 12.0), (1.0, 1.0, 1.0), 1.0)
+        else:
+            b.add_light_direct(tuple(-u), (1.0, 1.0, 1.0), 0.7)
+    return b.build()
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("groups,extra", [(0, 1), (0, 2), (0, 3), (1, 0), (1, 1), (2, 1)])
+def test_grouped_lights_are_the_whole_tables(card, groups, extra):
+    """The tiled probe, whose shadow pass takes a shading lane's lights in
+    groups, against the whole-table probe, whose pairs take one light each:
+    every row bit for bit (base rows, each light's diffuse, specular and
+    solid rows, each ring's hit and uv), into rows set to NaN beforehand,
+    with 1, 2, 3, G, G + 1 and 2G + 1 lights (G the group size), two-sided
+    planes, with and without fill rows, both shading variants, a lane mask,
+    and tiles that cut the table mid-record and in halves."""
+    n_lights = groups * _group_size() + extra
+    scene = _lit_scene(n_lights).to(card)
+    buf, hdr0 = scene_table.pack_scene(scene, None)
+    ro, rd = _rays(1 << 16, seed=4)
+    ro, rd = ro.to(card).contiguous(), rd.to(card).contiguous()
+    alive = (torch.rand(ro.shape[0], generator=torch.Generator().manual_seed(6)) < 0.8).to(card)
+    _, n_rec = _tile_layout(hdr0)
+    counts = scene.counts
+    nr = counts["rings"]
+    for fill in (True, False):
+        for flipped in (True, False):
+            hdr = scene_table.set_flags(hdr0, one_side=False, shade_flipped=flipped, fill=fill)
+            f0, i0, n0, g0 = _probe_into_nan(buf, hdr, ro, rd, 0.0, alive, 0)
+            assert (n0, g0) == (1, 0)
+            for tile in (17, -(-n_rec // 2)):
+                f, i, n, g = _probe_into_nan(buf, hdr, ro, rd, 0.0, alive, tile)
+                assert n == -(-n_rec // tile) and g == 1, tile
+                assert torch.equal(_bits(f), _bits(f0)), (fill, flipped, tile)
+                assert torch.equal(i, i0), (fill, flipped, tile)
+    # the shadows and rings the comparison covered
+    lights = f0[23:].reshape(n_lights, 3 + 3 * nr, -1)
+    shading = alive & (f0[0] < 1e30) & (i0[0] < sum(counts[k] for k in sp.SLOT_ORDER)
+                                        - counts["lights_point"])
+    solid = lights[:, 2][:, shading] > 0
+    assert int(shading.sum()) > 5000
+    assert ((solid.sum(1) > 50) & (solid.sum(1) < int(shading.sum()) - 50)).all()
+    assert int((lights[:, 3::3][:, :, shading] > 0).sum()) > 50

@@ -247,7 +247,9 @@ def test_tiles_and_pairs_counters(demo, tracer):
     """Each step adds its live lanes entering times the scene's slots to
     ``pairs``, and the table tiles its probe launches staged to ``tiles``:
     on the CPU, whose twin sweeps the table whole, 1 a probe call, as many
-    as ``unfilled`` counts in a forward frame."""
+    as ``unfilled`` counts in a forward frame; and the probe calls whose
+    shadow pass took lights in groups (a step's tally, ``_call_tallies``)
+    to ``grouped``: none, as the table is swept whole."""
     scene = demo[0]
     _frame(demo, CFG)
     (rec,) = tracer.records()
@@ -257,6 +259,7 @@ def test_tiles_and_pairs_counters(demo, tracer):
     assert slots == 13
     assert c["pairs"] == [n * slots for n in c["lanes"]]
     assert c["tiles"] == c["unfilled"] and sum(c["tiles"]) == 2 * sum(c["steps"])
+    assert "grouped" in graphs._call_tallies() and "grouped" not in c
 
 
 @pytest.mark.parametrize("fused,glossy,per_step", [("off", True, 2), ("off", False, 1),

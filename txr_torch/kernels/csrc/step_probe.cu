@@ -44,7 +44,8 @@
 //    shading normal, direction and specular exponent that the sweeping
 //    thread leaves in shared memory.  The live warps take them as (lane,
 //    light) pairs, light by light: a warp traces one light's shadow rays
-//    from neighbouring lanes, and a lane's lights run in parallel;
+//    from neighbouring lanes, and a lane's lights run in parallel (with
+//    tiles, a lane and a group of its lights a thread: below);
 //  - the torus's Ferrari solve runs only on lines that cross its inflated
 //    bounding sphere, and a shadow ray stops at its first solid occluder
 //    (txr_common.cuh).
@@ -58,12 +59,16 @@
 // staged with each sphere as one 16-byte (centre, r^2) record, and a pair
 // takes the root only where the line meets the sphere (sphere_tile_line):
 // such a sweep is bound by the instructions a (ray, sphere) pair issues,
-// nearly every pair a miss.  Then every
-// warp of a block stays for the stages and barriers; the sweep streams the
-// tiles once, the shading pairs once a round of kThreads pairs, and the
-// winner's record, material row and texture slot are read from global
-// memory.  Counts are runtime loop bounds: no specialisation on the scene's
-// topology yet.
+// nearly every pair a miss.  So its shadow pass takes a shading lane and a
+// group of up to kGroup of its lights a thread (Lights): the lights share
+// the shadow origin, so a sphere's offset from it and |oc|^2 - r^2 are
+// computed, and its record loaded, once for the group
+// (txr_common.cuh occluded_group_span), and with at most kGroup lights the
+// pass is one round of kThreads items.  Then every warp of a block stays for
+// the stages and barriers; the sweep streams the tiles once, the shadow
+// items once a round, and the winner's record, material row and texture slot
+// are read from global memory.  Counts are runtime loop bounds: no
+// specialisation on the scene's topology yet.
 //
 // The environment request of the Pallas body (cube_base >= 0) is left out:
 // the main path fetches the environment once after the bounce loop, so
@@ -159,6 +164,53 @@ __device__ __forceinline__ Pair begin_pair(const Meta& m, const float* tab, int 
   return Pair{G, so, ldir, dist, row + 2};
 }
 
+// The lights a thread of the tiled kernel's shadow pass takes at once, at
+// most: one group a shading lane whenever the scene has at most kGroup lights,
+// so the pass is a single round of kThreads items and stages each tile once.
+constexpr int kGroup = 4;
+
+// A shading lane's group of n lights l0 .. l0 + n - 1 (n <= kGroup): the
+// lane's column and shadow origin, and each light's direction and distance.
+// The lights are indexed at run time, so they live in local memory between
+// the tiles, and a tile's sweep holds the n it takes in registers: the
+// tiled kernel has 64 registers a thread.
+struct Lights {
+  float* G;
+  f3 so;
+  f3 ldir[kGroup];
+  float dist[kGroup];
+  int l0, n;
+
+  // light l0 + j's pair: its shadow ray and solid row
+  __device__ __forceinline__ Pair pair(const Meta& m, int j) const {
+    return Pair{G, so, ldir[j], dist[j], kBaseRows + (l0 + j) * (3 + 3 * m.n_ri) + 2};
+  }
+};
+
+// Item q of the n_shade lanes' items, group by group: lane q mod n_shade
+// with the lights of group q / n_shade, each begun as its pair (begin_pair
+// stores its diffuse and specular rows).
+__device__ __forceinline__ Lights begin_lights(const Meta& m, const float* tab, int q,
+                                               int n_shade, int n_lights, const int* s_shade,
+                                               const int* s_live,
+                                               const float (*s_in)[kThreads], float* col,
+                                               long long N) {
+  const int g = q / n_shade, i = q - g * n_shade;
+  Lights s{};
+  s.l0 = g * kGroup;
+  s.n = min(kGroup, n_lights - s.l0);
+#pragma unroll 1
+  for (int j = 0; j < s.n; ++j) {
+    const Pair p = begin_pair(m, tab, (s.l0 + j) * n_shade + i, n_shade, s_shade, s_live, s_in,
+                              col, N);
+    s.G = p.G;
+    s.so = p.so;
+    s.ldir[j] = p.ldir;
+    s.dist[j] = p.dist;
+  }
+  return s;
+}
+
 // The pair's (hit, u, v) rows of the rings of span sp (zeros without
 // shadows).
 __device__ __forceinline__ void ring_rows(const Meta& m, const txr::Span& sp, const float* sm,
@@ -177,11 +229,12 @@ __device__ __forceinline__ void ring_rows(const Meta& m, const txr::Span& sp, co
 // kTiled: the table is swept in tiles (txr_common.cuh Tiles, Span);
 // otherwise staged whole, and `tl` is unused.
 template <bool kTiled>
-__global__ void __launch_bounds__(kThreads)
-    step_probe_kernel(Meta m, const float* __restrict__ buf, txr::Tiles tl,
-                      const float* __restrict__ ro, const float* __restrict__ rd,
-                      const unsigned char* __restrict__ alive, float* __restrict__ fout,
-                      int* __restrict__ iout, long long n) {
+__device__ __forceinline__ void step_probe(Meta m, const float* __restrict__ buf, txr::Tiles tl,
+                                           const float* __restrict__ ro,
+                                           const float* __restrict__ rd,
+                                           const unsigned char* __restrict__ alive,
+                                           float* __restrict__ fout, int* __restrict__ iout,
+                                           long long n) {
   extern __shared__ __align__(16) float sm[];
   __shared__ int s_live[kThreads], s_shade[kThreads], s_wc1[kWarps], s_wc2[kWarps];
   // what a shading lane needs, by its place in the live list: the shadow
@@ -418,17 +471,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // ---- the lanes that shade: compact again ------------------------------------
-  // Then each thread takes (lane, light) pairs, light by light, so a warp
-  // traces one light's shadow rays from neighbouring lanes and a lane's
-  // lights run side by side: the live warps alone when the table is staged
-  // whole; with tiles, every warp, a round of kThreads pairs at a time, each
-  // round streaming the tiles once (a ray that found its occluder keeps
-  // taking part in the stages).
+  // Staged whole, each thread of the live warps takes (lane, light) pairs,
+  // light by light, so a warp traces one light's shadow rays from
+  // neighbouring lanes and a lane's lights run side by side.  With tiles,
+  // each thread of every warp takes a lane and a group of its lights
+  // (Lights), group by group, a round of kThreads items at a time, each
+  // round streaming the tiles once (a thread whose lights are all occluded
+  // keeps taking part in the stages).
   const int n_shade = txr::compact(shade, tid, kTiled ? kWarps : n_busy, s_shade, s_wc2);
-  const int n_pairs = n_shade * n_lights;
   const bool shadows = m.flags & FLAG_SHADOW;
   float* col = fout + base;
   if (!kTiled) {
+    const int n_pairs = n_shade * n_lights;
 #pragma unroll 1
     for (int q = tid; q < n_pairs; q += n_busy * 32) {
       const Pair p = begin_pair(m, sm, q, n_shade, s_shade, s_live, s_in, col, N);
@@ -437,28 +491,65 @@ __global__ void __launch_bounds__(kThreads)
     }
     return;
   }
+  const int n_items = n_shade * ((n_lights + kGroup - 1) / kGroup);
 #pragma unroll 1
-  for (int q0 = 0; q0 < n_pairs; q0 += kThreads) {
+  for (int q0 = 0; q0 < n_items; q0 += kThreads) {
     const int q = q0 + tid;
-    const bool pair = q < n_pairs;
-    Pair p{};
-    if (pair) p = begin_pair(m, buf, q, n_shade, s_shade, s_live, s_in, col, N);
-    bool occ = false;
+    const bool item = q < n_items;
+    Lights s{};
+    if (item) s = begin_lights(m, buf, q, n_shade, n_lights, s_shade, s_live, s_in, col, N);
+    unsigned occ = 0;  // bit j: light l0 + j is occluded
     if (shadows) {
       for (int a = 0; a < tl.lay.n; a += tl.tile) {
         const int b = min(a + tl.tile, tl.lay.n);
         txr::stage_tile(m, tl.lay, buf, sm, a, b);
-        if (pair) {
+        if (item) {
           const txr::Span sp = txr::tile_span(m, tl.lay, a, b);
-          occ = occ || txr::occluded_span<true>(m, sp, sm, p.so, p.ldir, p.dist);
-          ring_rows(m, sp, sm, p, N, true);
+          occ = txr::occluded_group_span(m, sp, sm, s.so, s.ldir, s.dist, s.n, occ);
+#pragma unroll 1
+          for (int j = 0; j < s.n; ++j) ring_rows(m, sp, sm, s.pair(m, j), N, true);
         }
       }
-    } else if (pair) {
-      ring_rows(m, txr::whole_span(m), sm, p, N, false);
+    } else if (item) {
+#pragma unroll 1
+      for (int j = 0; j < s.n; ++j) ring_rows(m, txr::whole_span(m), sm, s.pair(m, j), N, false);
     }
-    if (pair) p.G[p.row * N] = occ ? 1.0f : 0.0f;
+    if (item) {
+#pragma unroll 1
+      for (int j = 0; j < s.n; ++j) {
+        const Pair p = s.pair(m, j);
+        p.G[p.row * N] = occ >> j & 1u ? 1.0f : 0.0f;
+      }
+    }
   }
+}
+
+template <bool kTiled>
+__global__ void step_probe_kernel(Meta m, const float* __restrict__ buf, txr::Tiles tl,
+                                  const float* __restrict__ ro, const float* __restrict__ rd,
+                                  const unsigned char* __restrict__ alive,
+                                  float* __restrict__ fout, int* __restrict__ iout, long long n);
+
+// The whole-table kernel takes the registers ptxas gives it.  The tiled one
+// is held to 64, so that 4 blocks share an SM: left to itself, ptxas gives
+// its light groups 80, and at 3 blocks an SM its sweep of a large table is
+// slower.
+template <>
+__global__ void __launch_bounds__(kThreads)
+    step_probe_kernel<false>(Meta m, const float* __restrict__ buf, txr::Tiles tl,
+                             const float* __restrict__ ro, const float* __restrict__ rd,
+                             const unsigned char* __restrict__ alive, float* __restrict__ fout,
+                             int* __restrict__ iout, long long n) {
+  step_probe<false>(m, buf, tl, ro, rd, alive, fout, iout, n);
+}
+
+template <>
+__global__ void __launch_bounds__(kThreads, 4)
+    step_probe_kernel<true>(Meta m, const float* __restrict__ buf, txr::Tiles tl,
+                            const float* __restrict__ ro, const float* __restrict__ rd,
+                            const unsigned char* __restrict__ alive, float* __restrict__ fout,
+                            int* __restrict__ iout, long long n) {
+  step_probe<true>(m, buf, tl, ro, rd, alive, fout, iout, n);
 }
 
 }  // namespace
@@ -467,17 +558,21 @@ __global__ void __launch_bounds__(kThreads)
 // host; alive: uint8 [n] or null for every lane; tile: 0 to stage the table
 // as txr::plan_stage finds best, > 0 to force tiles of that many floats of
 // the tile layout (tests); n_tiles: where the number of stages a block makes a sweep is
-// written (1: the whole table), or null.  Returns cudaGetLastError() after
-// the launch; the caller raises on non-zero.
+// written (1: the whole table), or null; grouped: where 1 is written when the
+// launch's shadow pass takes a lane's lights in groups (the tiled kernel,
+// shadows on, some light), else 0, or null.  Returns cudaGetLastError()
+// after the launch; the caller raises on non-zero.
 extern "C" int txr_step_probe(const int* hdr, const float* buf, float pix_angle, const float* ro,
                               const float* rd, const unsigned char* alive, float* fout,
-                              int* iout, long long n, int tile, int* n_tiles, void* stream) {
+                              int* iout, long long n, int tile, int* n_tiles, int* grouped,
+                              void* stream) {
   const Meta m = txr::make_meta(hdr, pix_angle);
   txr::Stage st;
   if (int e = txr::plan_stage(m, step_probe_kernel<false>, step_probe_kernel<true>, kThreads,
                               m.n_buf, tile, st))
     return e;
   if (n_tiles) *n_tiles = st.n_tiles;
+  if (grouped) *grouped = st.t.tile != 0 && (m.flags & FLAG_SHADOW) && m.n_lp + m.n_ld > 0;
   if (n <= 0) return 0;
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
   const cudaStream_t s = (cudaStream_t)stream;

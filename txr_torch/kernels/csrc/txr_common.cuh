@@ -505,16 +505,34 @@ __device__ __forceinline__ void nearest_sweep(const Meta& m, const float* sm, f3
   nearest_span<false>(m, whole_span(m), sm, o, d, tmin, slot);
 }
 
+// occluded_span's tests after the spheres: two-sided planes, boxes,
+// surfaces, then toruses.
+__device__ __forceinline__ bool occluded_others(const Meta& m, const Span& sp, const float* sm,
+                                                f3 o, f3 d, float dist) {
+  const bool one_side = m.flags & FLAG_ONE_SIDE;
+  const float* tab = sm - sp.a;
+  const int* off = sp.lay.o;
+  float t;
+  if (!one_side)
+    for (int k = sp.lo[0]; k < sp.hi[0]; ++k)
+      if (plane_test(tab + off[0] + RPL * k, o, d, one_side, t) && t < dist) return true;
+  for (int k = sp.lo[3]; k < sp.hi[3]; ++k)
+    if (box_test(tab + off[3] + RBX * k, o, d, t) && t < dist) return true;
+  for (int k = sp.lo[2]; k < sp.hi[2]; ++k)
+    if (surface_test(tab + off[2] + RSU * k, o, d, t) && t < dist) return true;
+  for (int k = sp.lo[4]; k < sp.hi[4]; ++k)
+    if (torus_test(tab + off[4] + RTO * k, o, d, t) && t < dist) return true;
+  return false;
+}
+
 // inShadow's solid part (rt.frag:630-658) over a span: any occluder closer
 // than dist.  Spheres are tested solid, planes occlude only when two-sided;
 // rings are left to the caller, which needs each ring's (hit, u, v).  The
 // bit is an OR, so the ray stops at its first occluder, testing the cheap
-// types first: spheres, two-sided planes, boxes, surfaces, then toruses.
-// kTiled as nearest_span's.
+// types first: spheres, then occluded_others.  kTiled as nearest_span's.
 template <bool kTiled>
 __device__ __forceinline__ bool occluded_span(const Meta& m, const Span& sp, const float* sm,
                                               f3 o, f3 d, float dist) {
-  const bool one_side = m.flags & FLAG_ONE_SIDE;
   const float* tab = sm - sp.a;
   const int* off = sp.lay.o;
   float t;
@@ -535,16 +553,96 @@ __device__ __forceinline__ bool occluded_span(const Meta& m, const Span& sp, con
       if (sphere_test(S, S[3], false, o, d, t) && t < dist) return true;
     }
   }
-  if (!one_side)
-    for (int k = sp.lo[0]; k < sp.hi[0]; ++k)
-      if (plane_test(tab + off[0] + RPL * k, o, d, one_side, t) && t < dist) return true;
-  for (int k = sp.lo[3]; k < sp.hi[3]; ++k)
-    if (box_test(tab + off[3] + RBX * k, o, d, t) && t < dist) return true;
-  for (int k = sp.lo[2]; k < sp.hi[2]; ++k)
-    if (surface_test(tab + off[2] + RSU * k, o, d, t) && t < dist) return true;
-  for (int k = sp.lo[4]; k < sp.hi[4]; ++k)
-    if (torus_test(tab + off[4] + RTO * k, o, d, t) && t < dist) return true;
-  return false;
+  return occluded_others(m, sp, sm, o, d, dist);
+}
+
+// The staged spheres [lo, hi) against kN shadow rays from one origin o,
+// directions d[0..kN) and distances dist[0..kN): bit j of occ is ray j's
+// occlusion bit, OR-ed in.  A sphere's offset o - c and |o - c|^2 - r^2 are
+// computed once for the kN rays, and from one load of its record; each ray
+// then takes b and h, and the roots are taken only where some lane's line
+// meets the sphere.  Per (ray, sphere) pair these are sphere_tile_line's and
+// sphere_tile_root's operations in their order, so each bit is the one the
+// ray's own sweep gives.  Four spheres a step, with no exit between them:
+// returns after the step that sets all kN bits.
+template <int kN, int kG>
+__device__ __forceinline__ unsigned occluded_spheres(const float4* S, int lo, int hi, f3 o,
+                                                     const f3 (&dg)[kG],
+                                                     const float (&distg)[kG], unsigned occ) {
+  static_assert(kN >= 1 && kN <= kG, "a group holds 1 to kG rays");
+  constexpr unsigned all = (1u << kN) - 1u;
+  // the kN rays in registers for the sweep: the caller's arrays may live in
+  // local memory (it indexes them at run time)
+  f3 d[kN];
+  float dist[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) d[j] = dg[j], dist[j] = distg[j];
+  auto sphere = [&](const float4 s) {
+    const float ocx = o.x - s.x, ocy = o.y - s.y, ocz = o.z - s.z;
+    const float cc = ocx * ocx + ocy * ocy + ocz * ocz - fabsf(s.w);
+    float b[kN], h[kN];
+    bool meets = false;
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      b[j] = ocx * d[j].x + ocy * d[j].y + ocz * d[j].z;
+      h[j] = b[j] * b[j] - cc;
+      meets |= h[j] >= 0.0f;
+    }
+    if (meets) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        if (h[j] >= 0.0f) {
+          const float t = -b[j] - sqrtf(h[j]);
+          if (t > 0.0f && t < dist[j]) occ |= 1u << j;
+        }
+      }
+    }
+  };
+  int k = lo;
+#pragma unroll 1
+  for (; k + 4 <= hi; k += 4) {
+    sphere(S[k]);
+    sphere(S[k + 1]);
+    sphere(S[k + 2]);
+    sphere(S[k + 3]);
+    if (occ == all) return occ;
+  }
+#pragma unroll 1
+  for (; k < hi; ++k) sphere(S[k]);
+  return occ;
+}
+
+// occluded_spheres for the group's count n (1 to kG), unrolled for it.
+template <int kN, int kG>
+__device__ __forceinline__ unsigned occluded_spheres_of(int n, const float4* S, int lo, int hi,
+                                                        f3 o, const f3 (&d)[kG],
+                                                        const float (&dist)[kG], unsigned occ) {
+  if constexpr (kN > 1) {
+    if (n < kN) return occluded_spheres_of<kN - 1, kG>(n, S, lo, hi, o, d, dist, occ);
+  }
+  return occluded_spheres<kN, kG>(S, lo, hi, o, d, dist, occ);
+}
+
+// occluded_span<true> for a group of n (1 to kG) shadow rays from one origin
+// o: a shading lane's lights.  Bit j of the result is ray j's occlusion bit,
+// OR-ed into occ's; the span is skipped once all n bits are set.  The
+// spheres are swept once for the group (occluded_spheres); the other slot
+// types run ray by ray, for the rays not yet occluded (occluded_others).
+template <int kG>
+__device__ __forceinline__ unsigned occluded_group_span(const Meta& m, const Span& sp,
+                                                        const float* sm, f3 o,
+                                                        const f3 (&d)[kG],
+                                                        const float (&dist)[kG], int n,
+                                                        unsigned occ) {
+  const unsigned all = (1u << n) - 1u;
+  if (occ == all) return occ;
+  const float4* S = reinterpret_cast<const float4*>(sm - sp.a + sp.lay.o[1]);
+  occ = occluded_spheres_of<kG, kG>(n, S, sp.lo[1], sp.hi[1], o, d, dist, occ);
+#pragma unroll 1
+  for (int j = 0; j < n && occ != all; ++j)
+    if (!(occ >> j & 1u) && occluded_others(m, sp, sm, o, d[j], dist[j]))
+      occ |= 1u << j;
+  return occ;
 }
 
 __device__ __forceinline__ bool occluded(const Meta& m, const float* sm, f3 o, f3 d,

@@ -362,10 +362,12 @@ def step_probe(scene, atlas, ro, rd, *, one_side=True, shadow_enabled=True,
     kernels read (t on a live miss, the base rows and ints of a live
     light-bulb hit) and leaves the rest unwritten.  The twin fills
     either way.  ``step_probe.unfilled`` counts the calls made without
-    ``fill``, on either device, and ``step_probe.tiles`` the tiles of the
+    ``fill``, on either device, ``step_probe.tiles`` the tiles of the
     table each call's blocks stage (``launch``; 1 a call on the CPU, whose
-    twin does not tile): ``render/graphs.py`` tallies both per bounce step
-    for the tracer."""
+    twin does not tile), and ``step_probe.grouped`` the calls whose shadow
+    pass took a lane's lights in groups (``launch``; none on the CPU, whose
+    twin sweeps the table whole for each light): ``render/graphs.py``
+    tallies the three per bounce step for the tracer."""
     dev = resolve_device(device)
     check_rays("step_probe", dev, ro, rd)
     if scene.device != dev:
@@ -383,7 +385,7 @@ def step_probe(scene, atlas, ro, rd, *, one_side=True, shadow_enabled=True,
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p]
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def launch(buf, hdr, ro, rd, pix_angle=0.0, alive=None, tile=0):
@@ -397,9 +399,12 @@ def launch(buf, hdr, ro, rd, pix_angle=0.0, alive=None, tile=0):
     tiles sized from the table and the card's limits
     (``csrc/txr_common.cuh: plan_stage``), each sphere staged as one
     (centre, r²) record (``tile_layout``); ``tile`` > 0 forces tiles of
-    that many floats of that layout (tests).  Counts its launches in
-    ``step_probe.launches`` and the tiles each block stages a sweep (1: the
-    whole table) in ``step_probe.tiles``."""
+    that many floats of that layout (tests); then its shadow pass takes a
+    shading lane and a group of its lights a thread.  Counts its launches
+    in ``step_probe.launches``, the tiles each block stages a sweep (1: the
+    whole table) in ``step_probe.tiles``, and the launches whose shadow pass
+    took lights in groups (tiles, shadows on, some light) in
+    ``step_probe.grouped``."""
     dev = ro.device
     if dev.type != "cuda":
         raise ValueError(f"step_probe: no kernel for device {dev}")
@@ -411,19 +416,21 @@ def launch(buf, hdr, ro, rd, pix_angle=0.0, alive=None, tile=0):
     i = torch.empty((3, N), dtype=torch.int32, device=dev)
     if N == 0:
         return f, i
-    tiles = ctypes.c_int(0)
+    tiles, grouped = ctypes.c_int(0), ctypes.c_int(0)
     build.run("step_probe", "txr_step_probe", _ARGS, dev, hdr, buf.data_ptr(),
               float(pix_angle), ro.data_ptr(), rd.data_ptr(),
               None if mask is None else mask.data_ptr(), f.data_ptr(), i.data_ptr(), N,
-              int(tile), ctypes.addressof(tiles))
+              int(tile), ctypes.addressof(tiles), ctypes.addressof(grouped))
     step_probe.launches += 1
     step_probe.tiles += tiles.value
+    step_probe.grouped += grouped.value
     return f, i
 
 
 step_probe.launches = 0
 step_probe.unfilled = 0
 step_probe.tiles = 0
+step_probe.grouped = 0
 
 
 class Rows(collections.abc.Mapping):

@@ -179,11 +179,12 @@ def capacities(R, device):
 
 def _call_tallies():
     """The running tallies of what bounce steps call, under the tracer's
-    counter names: the probe calls without fills and the table tiles they
-    staged, and the nearest-hit and shadow sweeps (the eager route's kernel
-    launches)."""
+    counter names: the probe calls without fills, the table tiles they
+    staged and the calls whose shadow pass took lights in groups, and the
+    nearest-hit and shadow sweeps (the eager route's kernel launches)."""
     return dict(unfilled=sp.step_probe.unfilled, tiles=sp.step_probe.tiles,
-                nearest_calls=nearest_hit_sweep.calls, shadow_calls=shadow_sweep.calls)
+                grouped=sp.step_probe.grouped, nearest_calls=nearest_hit_sweep.calls,
+                shadow_calls=shadow_sweep.calls)
 
 
 def _state_fields(n):
@@ -392,11 +393,12 @@ class TraceUnit:
         With the tracer on, each step adds its live lanes, capacity and 1
         to the counters ``lanes``, ``rows`` and ``steps``, its live lanes
         times the scene's slots to ``pairs`` (and 1 to ``compacted`` at a
-        capacity below R; the probe launches without fills and the table
-        tiles its probe launches staged, and the nearest-hit and shadow
-        sweeps it called (the eager route's kernel launches), as its
-        capacity's step made them when it ran or was captured, to
-        ``unfilled``, ``tiles``, ``nearest_calls`` and ``shadow_calls``): the
+        capacity below R; the probe launches without fills, the table
+        tiles its probe launches staged and the probe launches whose shadow
+        pass took lights in groups, and the nearest-hit and shadow sweeps it
+        called (the eager route's kernel launches), as its capacity's step
+        made them when it ran or was captured, to ``unfilled``, ``tiles``,
+        ``grouped``, ``nearest_calls`` and ``shadow_calls``): the
         count it reads one step late is the lanes entering the step
         before."""
         traced = profiling.enabled()

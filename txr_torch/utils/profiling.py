@@ -53,7 +53,10 @@ without the glossy pass, 1 a train step); ``tiles``, the tiles of the
 scene table its probe launches staged, summed over them (tallied so: 1 a
 launch when the table is staged whole, and on the CPU, whose
 twin does not tile; more where the kernel sweeps a large table in tiles,
-``kernels.step_probe.launch``); ``pairs``, its live lanes entering times
+``kernels.step_probe.launch``); ``grouped``, its probe launches whose
+shadow pass took a shading lane's lights in groups (the tiled kernel with
+shadows on and some light; none on the CPU, whose twin does not tile);
+``pairs``, its live lanes entering times
 the scene's slots, the (ray, slot) tests of its nearest-hit sweep, not of
 the glossy probe's sweep or the shadow probes; and ``captures``, 1 per
 capture.
